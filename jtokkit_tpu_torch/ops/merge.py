@@ -1,0 +1,125 @@
+"""Device byte-pair merge, vectorized across pieces.
+
+Counterpart of ``jtokkit_tpu/ops/merge.py`` (``pair_lookup_cat``,
+``t3_round``, ``merge_rows_t3``). Pieces are columns of a [W, R] matrix
+(W = bucket width, R = pieces) and the sequential min-rank merge of the
+reference runs one step per column per round:
+
+  1. argmin of the pair ranks down each column (leftmost minimum wins, the
+     reference's strict ``<`` scan; ``torch.argmin`` returns the first
+     minimal index),
+  2. the pair merges: the left span takes the merged id (rank == id in
+     tiktoken vocabularies), the right span goes inactive,
+  3. the two affected neighbour ranks are looked up again, both sites and
+     both cuckoo probes in one batched row gather.
+
+The loop ends when no column has a mergeable pair. Each round's exit test
+reads one flag back to the host; :data:`MERGE_ROUNDS` counts the rounds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .classify import take_clip
+from .stage4 import _mix
+
+MAX_RANK = 0x7FFFFFFF
+
+_H1 = (0x9E3779B1, 0x85EBCA77, 0x2C1B3C6D)
+_H2 = (0xC2B2AE3D, 0x27D4EB2F, 0x165667B1)
+
+# merge rounds run by merge_rows_t3 since the counter was last reset
+MERGE_ROUNDS = 0
+
+
+def pair_lookup_cat(u, v, pair_rows_cat, table_mask):
+    """(u, v) -> merged id, or -1: one row gather per cuckoo half.
+
+    ``pair_rows_cat`` is the two cuckoo tables stacked along rows ([2T, 4]
+    of (u, v, id, safe), table 1 offset by T = table_mask + 1).
+    """
+    T = table_mask + 1
+    s1 = _mix(u, v, _H1, table_mask)
+    s2 = _mix(u, v, _H2, table_mask)
+    r1 = take_clip(pair_rows_cat[:T], s1)
+    r2 = take_clip(pair_rows_cat[T:], s2)
+    hit1 = (r1[..., 0] == u) & (r1[..., 1] == v)
+    hit2 = (r2[..., 0] == u) & (r2[..., 1] == v)
+    out = torch.where(hit1, r1[..., 2], -1)
+    return torch.where(hit2, r2[..., 2], out)
+
+
+def t3_round(ids, rank, active, pair_rows_cat, table_mask):
+    """ONE sequential merge step per column of a [W, R] state (the
+    reference's single iteration, ``M/GptBytePairEncoding.java:223-263``).
+
+    Returns (ids, rank, active) after the step.
+    """
+    W, _R = ids.shape
+    subl = torch.arange(W, dtype=torch.int32, device=ids.device)[:, None]
+    BIG = W + 1
+
+    def at_sublane(x, m, fill):
+        return torch.where(subl == m[None, :], x, fill).amin(dim=0)
+
+    m = torch.argmin(rank, dim=0).to(torch.int32)
+    minval = rank.amin(dim=0)
+    do = minval < MAX_RANK
+
+    after_m = active & (subl > m[None, :])
+    nxt = torch.where(after_m, subl, BIG).amin(dim=0)
+    prv = torch.where(active & (subl < m[None, :]), subl, -1).amax(dim=0)
+    nxt2 = torch.where(active & (subl > nxt[None, :]), subl, BIG).amin(dim=0)
+
+    one_m = subl == m[None, :]
+    one_n = subl == nxt[None, :]
+    do_row = do[None, :]
+    new_ids = torch.where(one_m & do_row, minval[None, :], ids)
+    new_active = active & ~(one_n & do_row)
+
+    id_m = minval
+    id_prv = at_sublane(ids, prv, MAX_RANK)
+    id_nxt2 = at_sublane(ids, nxt2, MAX_RANK)
+    # both neighbour-rank sites in one batched lookup (one row gather)
+    found = pair_lookup_cat(
+        torch.stack([id_m, id_prv]), torch.stack([id_nxt2, id_m]),
+        pair_rows_cat, table_mask,
+    )
+    found = torch.where(found < 0, MAX_RANK, found)
+    rank_m = torch.where(nxt2 <= W, found[0], MAX_RANK)
+    rank_prv = torch.where(prv >= 0, found[1], MAX_RANK)
+
+    one_p = subl == prv[None, :]
+    new_rank = torch.where(one_m & do_row, rank_m[None, :], rank)
+    new_rank = torch.where(one_p & do_row, rank_prv[None, :], new_rank)
+    new_rank = torch.where(one_n & do_row, MAX_RANK, new_rank)
+    return new_ids, new_rank, new_active
+
+
+def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+                  table_mask):
+    """Exact merge of a transposed piece matrix (column r holds piece r's
+    bytes in rows 0..lens[r]-1). Semantics identical to the reference merge
+    loop (``M/GptBytePairEncoding.java:200-275``).
+
+    Returns (ids_t int32[W, R], active_t bool[W, R]).
+    """
+    global MERGE_ROUNDS
+    W, R = mat_t.shape
+    dev = mat_t.device
+    subl = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
+    b = mat_t.to(torch.int32)
+
+    active = subl < lens[None, :]
+    ids = torch.where(active, take_clip(byte_to_id, b), -1)
+
+    b_next = torch.cat([b[1:, :], b.new_zeros((1, R))], dim=0)
+    is_pair = subl + 1 < lens[None, :]
+    rank = torch.where(is_pair, take_clip(byte_pair_id, b * 256 + b_next), -1)
+    rank = torch.where(rank < 0, MAX_RANK, rank)
+
+    while bool((rank.amin() < MAX_RANK).item()):
+        ids, rank, active = t3_round(ids, rank, active, pair_rows_cat, table_mask)
+        MERGE_ROUNDS += 1
+    return ids, active

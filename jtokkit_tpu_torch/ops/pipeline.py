@@ -1,0 +1,81 @@
+"""Stage B (one merge bucket) and Stage C (counts, offsets, token scatters).
+
+Counterpart of ``jtokkit_tpu/ops/pipeline.py`` (``merge_bucket_v3`` and the
+Stage C functions). The reference's ``mode="drop"`` scatters write their
+dropped entries to a spare slot one past the end, which is sliced off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import merge
+from .classify import take_clip
+
+
+def merge_bucket_v3(
+    buf, starts, lens, miss_sorted, group_start_b, count_b,
+    byte_to_id, byte_pair_id, pair_rows_cat, table_mask,
+    *, lanes: int, cap: int,
+):
+    """Exact merge of one bucket's pieces; ``cap`` columns, of which the
+    first ``count_b`` are live.
+
+    Returns (cols int32[cap] piece indices, ids int32[lanes, cap],
+    active bool[lanes, cap]).
+    """
+    N = buf.shape[0]
+    M = miss_sorted.shape[0]
+    dev = buf.device
+    r = torch.arange(cap, dtype=torch.int32, device=dev)
+    take = torch.clamp(group_start_b + r, max=M - 1)
+    cols = miss_sorted.index_select(0, take)
+    live = r < count_b
+    c_start = torch.where(live, starts.index_select(0, cols), 0)
+    c_len = torch.where(live, lens.index_select(0, cols), 0)
+
+    grows = torch.arange(lanes, dtype=torch.int32, device=dev)[:, None]
+    gidx = torch.clamp(c_start[None, :] + grows, max=N - 1)
+    mat_t = torch.where(grows < c_len[None, :], take_clip(buf, gidx), 0)
+
+    ids, active = merge.merge_rows_t3(
+        mat_t, c_len, byte_to_id, byte_pair_id, pair_rows_cat, table_mask,
+    )
+    return cols, ids, active & live[None, :]
+
+
+def counts_init(hit, n_pieces):
+    P = hit.shape[0]
+    piece_valid = torch.arange(P, dtype=torch.int32, device=hit.device) < n_pieces
+    return (piece_valid & (hit >= 0)).to(torch.int32)
+
+
+def counts_add_bucket(counts, cols, active):
+    return counts.index_add(0, cols, active.sum(dim=0, dtype=torch.int32))
+
+
+def make_offsets(counts, n_pieces):
+    P = counts.shape[0]
+    offsets = torch.cat([
+        counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)
+    ])
+    n_tokens = offsets[torch.clamp(n_pieces, max=P)]
+    return offsets, n_tokens
+
+
+def scatter_hits(n_out: int, hit, offsets, n_pieces):
+    P = hit.shape[0]
+    piece_valid = torch.arange(P, dtype=torch.int32, device=hit.device) < n_pieces
+    tgt = torch.where(piece_valid & (hit >= 0), offsets[:P], n_out)
+    tokens = hit.new_zeros(n_out + 1)
+    tokens.scatter_(0, tgt.to(torch.int64), hit.clamp_min(0))
+    return tokens[:n_out]
+
+
+def scatter_bucket(tokens, ids, active, cols, offsets):
+    n_out = tokens.shape[0]
+    pos = torch.cumsum(active, dim=0, dtype=torch.int32) - 1
+    tgt = torch.where(active, offsets.index_select(0, cols)[None, :] + pos, n_out)
+    out = torch.cat([tokens, tokens.new_zeros(1)])
+    out.scatter_(0, tgt.reshape(-1).to(torch.int64), ids.reshape(-1))
+    return out[:n_out]
