@@ -10,18 +10,30 @@
 Phases (each raises on failure, and then no result line is printed):
 
 1. Card: requires CUDA; prints nvidia-smi's name and power limit.
-2. Build: compiles the scan kernel (jtokkit_tpu_torch/csrc/scan.cu) from
-   the checkout with nvcc and prints the build time.
-3. Kernel against its plain PyTorch version on the card, exact int32
-   equality, at the main path's shapes and ragged ones; prints kernel,
-   plain, library (torch.cummax / torch.cumsum per leaf) and bound times.
-4. Main path at full size: cl100k_base through the public registry on the
-   default device; encode_ordinary_batch and count_tokens_batch over 16 MB
-   english, 2 MB mixed and 1 MB cjk (1 MiB chunks). Tokens are held against
-   the host oracle on a >= 1 MB sample of each corpus and on the four
+2. Build: compiles both kernels (jtokkit_tpu_torch/csrc/scan.cu and
+   gather.cu) from the checkout, one nvcc each, started together; prints the
+   build time and each kernel's registers and shared memory.
+3. Each kernel against its plain PyTorch version on the card, exact int32
+   equality: the scan at Stage A's shapes, decode's (one max leaf of 2^13,
+   2^20, 2^24) and ragged ones; the table gather at [4096, 128] lookups of a
+   2048-entry table, at tables of 1, 256 and the limit, at ragged counts and
+   with out-of-range indices. Prints kernel, plain, library and bound times.
+4. The profiling entry point (jtokkit_tpu_torch.scripts.profile_gather), the
+   gather kernel's path: its lines, and the kernel's launch count.
+5. Encode and count at full size: cl100k_base through the public registry on
+   the default device; encode_ordinary_batch and count_tokens_batch over
+   16 MB english, 2 MB mixed and 1 MB cjk (1 MiB chunks). Tokens are held
+   against the host oracle on a >= 1 MB sample of each corpus and on the four
    conformance CSVs; counts against token lengths; the scan counters show
    5 kernel launches per cl100k Stage A run and no plain-version call.
-5. One JSON line of kernel numbers, then the last line
+6. Decode: the tokens of the three corpora go back through
+   decode_bytes_batch; the bytes equal the documents' UTF-8 and the numpy
+   host decode, with one scan launch per call; special and unknown ids behave
+   as the oracle does.
+7. Long pieces: english documents with a 5000-byte and a 4500-byte piece and
+   a 3000-byte CJK run mixed in; tokens equal the oracle, the chunks take the
+   device fallback, and exactly the pieces over 4096 bytes merge on the host.
+8. One JSON line of kernel numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or jtokkit_tpu.
@@ -34,44 +46,17 @@ import ast
 import csv
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-REPLACES = "jtokkit_tpu/ops/pallas_scan.py:144"  # _scan_stacked
+REPLACES_SCAN = "jtokkit_tpu/ops/pallas_scan.py:144"  # _scan_stacked
+REPLACES_GATHER = "scripts/profile_gather.py:100"  # main -> pal
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def device_ms(fn, iters: int) -> float:
-    """Device time of one call of ``fn``: CUDA events around ``iters``
-    back-to-back calls, queued behind a sleep kernel so host launch time
-    does not leave gaps."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)  # ~25 ms of queue while the host enqueues
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def make_leaves(kinds, n, gen):
@@ -95,6 +80,8 @@ def phase_kernel(scan):
     import numpy as np
     import torch
 
+    from jtokkit_tpu_torch.scripts.profile_gather import event_ms as device_ms
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     main_shapes = [
@@ -107,6 +94,10 @@ def phase_kernel(scan):
         (("max", "max"), 1 << 18, False),          # masked_rows stitch
         (("max", "max"), 1 << 15, False),          # masked_positions, ascii
         (("max", "max"), 1 << 17, False),          # masked_positions, unicode
+        # decode: one leaf of the output capacity (8 KB, 1 MB and 16 MB of text)
+        (("max",), 1 << 13, False),
+        (("max",), 1 << 20, False),
+        (("max",), 1 << 24, False),
     ]
     max_err = 0
     rows = []
@@ -121,7 +112,8 @@ def phase_kernel(scan):
             if err:
                 raise AssertionError(f"kernel != plain at {kinds} n={n}")
         ms = device_ms(lambda: scan.scan_leaves_cuda(leaves, kinds, reverse=reverse), 200)
-        plain_ms = device_ms(lambda: scan.scan_leaves_plain(leaves, kinds, reverse=reverse), 50)
+        slow_iters = 50 if n <= 1 << 20 else 5
+        plain_ms = device_ms(lambda: scan.scan_leaves_plain(leaves, kinds, reverse=reverse), slow_iters)
         library_ms = None
         if "last" not in kinds:
             def library():
@@ -130,7 +122,7 @@ def phase_kernel(scan):
                         torch.cummax(x, 0)
                     else:
                         torch.cumsum(x, 0, dtype=torch.int32)
-            library_ms = device_ms(library, 50)
+            library_ms = device_ms(library, slow_iters)
         bound_ms = 2 * len(kinds) * n * 4 / HBM_BYTES_PER_S * 1e3
         rows.append({
             "kinds": list(kinds), "n": n, "reverse": reverse, "ms": ms,
@@ -161,6 +153,95 @@ def phase_kernel(scan):
         raise AssertionError("int32 add does not wrap")
     log(f"kernel == plain version on every shape (max_abs_err {max_err})")
     return rows, max_err
+
+
+def phase_gather(gather):
+    """The table gather against its plain version; times at the profiled
+    shape ([4096, 128] lookups of a 2048-entry table)."""
+    import torch
+
+    from jtokkit_tpu_torch.scripts.profile_gather import event_ms as device_ms
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def check(table, idx, what):
+        got = gather.take_table_cuda(table, idx)
+        want = gather.take_table_plain(table, idx)
+        torch.cuda.synchronize()
+        if got.shape != idx.shape or got.dtype != torch.int32:
+            raise AssertionError(f"gather {what}: wrong shape or type")
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather kernel != plain at {what}")
+        return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+    max_err = 0
+    table = ints(-1000, 1000, (2048,))
+    idx = ints(0, 2048, (4096, 128))
+    max_err = max(max_err, check(table, idx, "[4096,128] x 2048"))
+    for size in (1, 256, gather.MAX_TABLE):
+        t = ints(-1000, 1000, (size,))
+        max_err = max(max_err, check(t, ints(0, size, (4096, 128)), f"table {size}"))
+        # out-of-range indices clamp, INT32 extremes included
+        wild = ints(-3 * size - 5, 4 * size + 5, (1000, 37))
+        wild[0, 0], wild[0, 1] = -(1 << 31), (1 << 31) - 1
+        max_err = max(max_err, check(t, wild, f"table {size}, out of range"))
+    for n in (0, 1, 127, 1_000_003):
+        max_err = max(max_err, check(table, ints(0, 2048, (n,)), f"{n} elements"))
+    # a view whose data is not 16-byte aligned takes the scalar loop
+    max_err = max(max_err, check(table, ints(0, 2048, (4099,))[1:], "unaligned"))
+    before = gather.KERNEL_LAUNCHES
+    if gather.take_table_cuda(table, ints(0, 2048, (0, 128))).shape != (0, 128):
+        raise AssertionError("gather of no elements: wrong shape")
+    if gather.KERNEL_LAUNCHES != before:
+        raise AssertionError("gather of no elements launched the kernel")
+    try:
+        gather.take_table_cuda(ints(0, 9, (gather.MAX_TABLE + 1,)), idx)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a table over the limit was accepted")
+
+    flat = idx.reshape(-1)
+    ms = device_ms(lambda: gather.take_table_cuda(table, idx), 500)
+    plain_ms = device_ms(lambda: gather.take_table_plain(table, idx), 200)
+    library_ms = device_ms(lambda: table.index_select(0, flat), 500)
+    big = ints(-1000, 1000, (gather.MAX_TABLE,))
+    big_idx = ints(0, gather.MAX_TABLE, (4096, 128))
+    big_ms = device_ms(lambda: gather.take_table_cuda(big, big_idx), 200)
+    n = idx.numel()
+    bound_ms = (4 * n + 4 * n + 4 * table.numel()) / HBM_BYTES_PER_S * 1e3
+    log(f"gather [4096,128] x 2048: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"library (index_select) {library_ms:.4f} ms  bound {bound_ms:.5f} ms  "
+        f"({bound_ms / ms:.0%} of bound); table {gather.MAX_TABLE}: {big_ms:.4f} ms")
+    log(f"gather kernel == plain version on every shape (max_abs_err {max_err})")
+    return {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "max_abs_err": max_err,
+        "shape": {"idx": [4096, 128], "table": 2048},
+        "limit_table_ms": big_ms,
+    }
+
+
+def phase_profile_gather(gather):
+    """The gather kernel's path: the profiling entry point."""
+    from jtokkit_tpu_torch.scripts import profile_gather
+
+    gather.KERNEL_LAUNCHES = 0
+    gather.PLAIN_CALLS = 0
+    rows = profile_gather.main()
+    launches, plain = gather.KERNEL_LAUNCHES, gather.PLAIN_CALLS
+    if launches <= 0 or plain != 0:
+        raise AssertionError(
+            f"profile_gather: {launches} kernel launches, {plain} plain calls")
+    if not rows or not all(r["ms"] > 0 for r in rows):
+        raise AssertionError("profile_gather returned no times")
+    log(f"profile_gather: {len(rows)} cases, {launches} gather kernel launches")
+    return launches
 
 
 def load_conformance(name: str):
@@ -212,7 +293,7 @@ def phase_main_path(card: str):
     scan.KERNEL_LAUNCHES = 0
     scan.PLAIN_CALLS = 0
     merge.MERGE_ROUNDS = 0
-    runs0, host0 = engine.stage_a_runs, engine.host_chunks
+    runs0, host0 = engine.stage_a_runs, engine.fallback_chunks
     results = {}
     for name, docs in corpora.items():
         mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
@@ -226,17 +307,17 @@ def phase_main_path(card: str):
     launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
     rounds = merge.MERGE_ROUNDS
     runs = engine.stage_a_runs - runs0
-    host_chunks = engine.host_chunks - host0
+    fallback_chunks = engine.fallback_chunks - host0
 
-    log(f"main path: {runs} Stage A runs, {launches} scan kernel launches, "
-        f"{plain} plain scan calls, {rounds} merge rounds, "
-        f"{host_chunks} host chunks")
+    log(f"encode and count: {runs} Stage A runs, {launches} scan kernel "
+        f"launches, {plain} plain scan calls, {rounds} merge rounds, "
+        f"{fallback_chunks} fallback chunks")
     if launches != 5 * runs or runs == 0:
         raise AssertionError(f"{launches} launches for {runs} cl100k Stage A runs")
     if plain != 0:
         raise AssertionError(f"{plain} scans took the plain version")
-    if host_chunks != 0:
-        raise AssertionError(f"{host_chunks} chunks went to the host oracle")
+    if fallback_chunks != 0:
+        raise AssertionError(f"{fallback_chunks} chunks took the long-piece fallback")
 
     oracle = enc.oracle
     for name, (docs, tokens, counts, mb, enc_s, cnt_s) in results.items():
@@ -261,7 +342,120 @@ def phase_main_path(card: str):
         if e.count_tokens_batch([r[0] for r in rows]) != [len(g) for g in got]:
             raise AssertionError(f"{name}: conformance counts differ")
         log(f"{name}: {len(rows)} conformance rows equal on the card")
-    return launches, {k: v[3:] for k, v in results.items()}
+    return enc, launches, results
+
+
+def phase_decode(enc, results, card: str):
+    """The corpora's tokens back to bytes on the card."""
+    import torch
+
+    from jtokkit_tpu_torch import UnknownTokenError
+    from jtokkit_tpu_torch.ops import scan
+
+    engine = enc.device_engine()
+    enc.decode_bytes_batch(results["mixed"][1][:16])  # warm-up, not counted
+    torch.cuda.synchronize()
+    rates = {}
+    total_launches = 0
+    for name, (docs, tokens, _counts, mb, _e, _c) in results.items():
+        scan.KERNEL_LAUNCHES = 0
+        scan.PLAIN_CALLS = 0
+        t = time.time()
+        got = enc.decode_bytes_batch(tokens)
+        dec_s = time.time() - t
+        launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
+        if launches != 1 or plain != 0:
+            raise AssertionError(
+                f"decode {name}: {launches} scan launches, {plain} plain scans")
+        total_launches += launches
+        if got != [d.encode("utf-8") for d in docs]:
+            raise AssertionError(f"decode {name}: bytes differ from the documents")
+        t = time.time()
+        host = engine.decode_bytes_batch_host(tokens)
+        host_s = time.time() - t
+        if got != host:
+            raise AssertionError(f"decode {name}: device and host decode differ")
+        if scan.KERNEL_LAUNCHES != 1:
+            raise AssertionError("the host decode launched the scan kernel")
+        n_tok = sum(len(t) for t in tokens)
+        rates[name] = mb / dec_s
+        log(f"decode {name}: {mb:.2f} MB from {n_tok} tokens; device path "
+            f"{mb / dec_s:.2f} MB/s, numpy host path {mb / host_s:.2f} MB/s, "
+            f"1 scan launch [{card}]")
+
+    oracle = enc.oracle
+    special = [[100257], [9906], [9906, 100257, 9906]]
+    if enc.decode_bytes_batch(special) != [oracle.decode_bytes(t) for t in special]:
+        raise AssertionError("decode: special ids differ from the oracle")
+    if enc.decode_batch(special)[0] != "<|endoftext|>":
+        raise AssertionError("decode: the special token's text is wrong")
+    for unknown in (lambda: enc.decode_bytes_batch([[99_999_999]]),
+                    lambda: oracle.decode_bytes([99_999_999])):
+        try:
+            unknown()
+        except UnknownTokenError:
+            continue
+        raise AssertionError("decode: an unknown id did not raise")
+    log("decode: special and unknown ids behave as the oracle does")
+    return total_launches, rates
+
+
+def phase_long_pieces(enc, card: str):
+    """Chunks with a piece over the largest merge bucket, at 1 MiB chunks."""
+    import torch
+
+    from jtokkit_tpu_torch.engine import presplit
+    from jtokkit_tpu_torch.ops import merge, scan, stage4
+    from jtokkit_tpu_torch.utils import corpus
+
+    engine = enc.device_engine()
+    docs = corpus.generate(1.5, seed=2, flavor="english")
+    long_docs = ["a" * 5000, "x " + "b" * 4500 + " y", "intro " + "中文字" * 333 + " end"]
+    for k, d in enumerate(long_docs):
+        docs.insert((k + 1) * len(docs) // 4, d)
+    mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
+    splitter = presplit.compile_splitter(engine.pattern)
+    piece_bytes = [len(d[a:b].encode("utf-8")) for d in docs for a, b in splitter(d)]
+    n_over = sum(1 for n in piece_bytes if n > stage4.MAX_PIECE_LEN)
+    if n_over != 2 or max(n for n in piece_bytes if n <= 4096) < 2997:
+        raise AssertionError(f"long-piece batch: {n_over} pieces over 4096 bytes")
+
+    scan.KERNEL_LAUNCHES = 0
+    scan.PLAIN_CALLS = 0
+    merge.MERGE_ROUNDS = 0
+    chunks0, pieces0 = engine.fallback_chunks, engine.host_pieces
+    t = time.time()
+    tokens = enc.encode_ordinary_batch(docs)
+    torch.cuda.synchronize()
+    enc_s = time.time() - t
+    chunks, pieces = engine.fallback_chunks - chunks0, engine.host_pieces - pieces0
+    rounds = merge.MERGE_ROUNDS
+    t = time.time()
+    counts = enc.count_tokens_batch(docs)
+    cnt_s = time.time() - t
+    launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
+    if plain != 0:
+        raise AssertionError(f"long pieces: {plain} scans took the plain version")
+    if chunks <= 0 or pieces != n_over:
+        raise AssertionError(
+            f"long pieces: {chunks} fallback chunks, {pieces} host pieces "
+            f"for {n_over} pieces over 4096 bytes")
+    if engine.fallback_chunks - chunks0 != 2 * chunks or (
+            engine.host_pieces - pieces0 != 2 * n_over):
+        raise AssertionError("long pieces: count took another route than encode")
+    if counts != [len(t) for t in tokens]:
+        raise AssertionError("long pieces: counts differ from token lengths")
+    oracle = enc.oracle
+    for d, got in zip(docs, tokens):
+        if got != oracle.encode_ordinary(d)[0]:
+            raise AssertionError("long pieces: tokens differ from the oracle")
+    log(f"long pieces: {mb:.2f} MB, {len(docs)} docs, {chunks} fallback chunks, "
+        f"{pieces} pieces merged on the host, {rounds} merge rounds in encode, "
+        f"{launches} scan launches (encode + count); encode {enc_s:.2f} s, "
+        f"count {cnt_s:.2f} s; all docs equal the oracle [{card}]")
+    return launches, {"mb": mb, "encode_s": enc_s, "count_s": cnt_s,
+                      "fallback_chunks": chunks, "host_pieces": pieces,
+                      "merge_rounds": rounds}
 
 
 def phase_profile(card: str, out_dir: str):
@@ -312,30 +506,41 @@ def main() -> int:
         return 2
     t_start = time.time()
     sys.path.insert(0, ROOT)
+    from jtokkit_tpu_torch.scripts.profile_gather import card_line
+
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from jtokkit_tpu_torch.ops import scan
+    from jtokkit_tpu_torch.ops import _build, gather, scan
 
     t = time.time()
-    scan.build()
-    log(f"build: scan kernel in {time.time() - t:.1f} s ({scan.library_path()})")
-    for line in scan.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    libraries = [scan.LIBRARY, gather.LIBRARY]
+    _build.build_all(libraries)
+    log(f"build: {len(libraries)} kernels in {time.time() - t:.1f} s")
+    for lib in libraries:
+        log(f"  {lib.name}: {lib.path()}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("    " + line.strip())
 
     rows, max_err = phase_kernel(scan)
-    launches, rates = phase_main_path(card)
+    gather_row = phase_gather(gather)
+    gather_launches = phase_profile_gather(gather)
+    enc, launches, results = phase_main_path(card)
+    decode_launches, decode_rates = phase_decode(enc, results, card)
+    long_launches, long_row = phase_long_pieces(enc, card)
     if args.profile is not None:
         phase_profile(card, args.profile)
 
-    head = rows[1]  # max,max,add at n = 2^20: the largest scan on the path
+    head = rows[1]  # max,max,add at n = 2^20: the largest scan of Stage A
     kernels = [{
         "name": "scan_leaves",
         "route": "cuda",
         "source": "jtokkit_tpu_torch/csrc/scan.cu",
-        "replaces": REPLACES,
-        "launches": launches,
+        "replaces": REPLACES_SCAN,
+        "launches": launches + decode_launches + long_launches,
+        "launches_by_path": {"encode_count": launches, "decode": decode_launches,
+                             "long_pieces": long_launches},
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -344,10 +549,25 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "shape": {"kinds": head["kinds"], "n": head["n"]},
         "shapes": rows,
+    }, {
+        "name": "take_table",
+        "route": "cuda",
+        "source": "jtokkit_tpu_torch/csrc/gather.cu",
+        "replaces": REPLACES_GATHER,
+        "launches": gather_launches,
+        "max_abs_err": gather_row["max_abs_err"],
+        "ms": gather_row["ms"],
+        "plain_ms": gather_row["plain_ms"],
+        "bound_ms": gather_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": gather_row["library_ms"],
+        "shape": gather_row["shape"],
+        "limit_table_ms": gather_row["limit_table_ms"],
     }]
-    summary = {name: {"mb": mb, "encode_mb_s": mb / e, "count_mb_s": mb / c}
-               for name, (mb, e, c) in rates.items()}
-    log(json.dumps({"main_path": summary, "card": card,
+    summary = {name: {"mb": r[3], "encode_mb_s": r[3] / r[4],
+                      "count_mb_s": r[3] / r[5], "decode_mb_s": decode_rates[name]}
+               for name, r in results.items()}
+    log(json.dumps({"main_path": summary, "long_pieces": long_row, "card": card,
                     "seconds": time.time() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

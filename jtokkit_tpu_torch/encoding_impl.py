@@ -2,10 +2,10 @@
 device engine.
 
 Single-text calls follow the reference's semantics exactly through the host
-oracle (reference ``M/GptBytePairEncoding.java``); batch calls run on the
-device engine (the two are differential-tested to be identical). The device
-is fixed when the encoding is made: ``None`` means the CUDA card, and without
-one the constructor raises.
+oracle (reference ``M/GptBytePairEncoding.java``); batch calls (encode,
+count, decode) run on the device engine (the two are differential-tested to
+be identical). The device is fixed when the encoding is made: ``None`` means
+the CUDA card, and without one the constructor raises.
 """
 
 from __future__ import annotations
@@ -121,3 +121,9 @@ class GptBytePairEncoding(Encoding):
             if t is not None:
                 self._oracle.check_special(t)
         return engine.count_tokens_batch(texts)
+
+    def decode_bytes_batch(self, token_lists) -> List[bytes]:
+        engine = self.device_engine()
+        if engine is None:
+            return [self.decode_bytes(t) for t in token_lists]
+        return engine.decode_bytes_batch(token_lists)

@@ -1,7 +1,9 @@
-"""Device engine: the staged batch encode pipeline on a CUDA card.
+"""Device engine: the staged batch encode pipeline and batch decode on a
+CUDA card.
 
-Counterpart of ``jtokkit_tpu/engine/device.py`` (the staged path). Per batch
-(documents -> token ids):
+Counterpart of ``jtokkit_tpu/engine/device.py`` (the staged path, its
+long-piece fallback and the decode methods). Per batch (documents -> token
+ids):
 
 1. Documents are packed into flat byte chunks (``chunk_bytes``, 1 MiB by
    default) with one separator byte between documents; validity is derived
@@ -12,7 +14,11 @@ Counterpart of ``jtokkit_tpu/engine/device.py`` (the staged path). Per batch
 3. Host sync 1: ONE fetch of every chunk's meta row. Chunks whose piece or
    miss table overflowed run Stage A again with the roomy capacities.
    Chunks with a piece longer than the largest merge bucket (4096 bytes of
-   one regex piece) are encoded by the host oracle (``host_chunks``).
+   one regex piece) leave the staged path (``fallback_chunks``): their
+   piece boundaries (``ops/boundaries.piece_starts``) and the row-major
+   merge of every piece up to 4096 bytes (``ops/merge.merge_rows``) still
+   run on the device, and only the oversized pieces themselves are merged
+   on the host, one by one (``host_pieces``).
 4. Stage B per nonempty bucket: exact byte-pair merge
    (``ops/pipeline.merge_bucket_v3``), capacity the smallest power of two
    covering the bucket's count.
@@ -20,24 +26,32 @@ Counterpart of ``jtokkit_tpu/engine/device.py`` (the staged path). Per batch
 6. Host sync 2: ONE fetch of every chunk's token count and document counts,
    then one fetch of all chunks' live token prefixes.
 
+Batch decode (token ids -> bytes) concatenates the lists, runs
+``ops/decode.decode_tokens`` once and fetches the bytes once; lists with a
+special or unknown id go to the host oracle, list by list.
+
 Entry points run on CUDA unless the caller names another device; without a
 card they raise.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import pipeline, stage4
+from ..ops import boundaries, classify, decode as decode_ops, merge, pipeline, stage4
 from ..vocab import tables as vtables
 from ..vocab.loader import asset_path
-from .oracle import OracleEngine
+from .oracle import OracleEngine, byte_pair_merge
 from .tables import DeviceTables
 
 CHUNK_BYTES = 1 << 20
+# the long-piece fallback's row-major merge buckets (piece bytes per row) and
+# its least row count
+_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+_MIN_ROWS = 128
 _DOC_SIZES = (64, 1024, 16384, 262144)
 
 # (piece_div, miss_div) capacity variants: the primary sizing covers natural
@@ -101,8 +115,10 @@ class DeviceEngine:
         self._flat_sizes = tuple(
             s for s in (8192, 131072, 1 << 21) if s < self.chunk_bytes
         ) + (self.chunk_bytes,)
-        # chunks encoded by the host oracle, and Stage A runs (retries too)
-        self.host_chunks = 0
+        # chunks that took the long-piece fallback, pieces it merged on the
+        # host, and Stage A runs (retries too)
+        self.fallback_chunks = 0
+        self.host_pieces = 0
         self.stage_a_runs = 0
 
     @classmethod
@@ -223,7 +239,8 @@ class DeviceEngine:
         sync for the Stage A metadata (plus one on a capacity retry).
 
         Returns one result per chunk: ("ok", parts, tokens, n_tokens,
-        doc_counts) with device tensors, or ("host", buf, doc_ends, parts).
+        doc_counts) with device tensors, or ("fallback", buf, doc_ends,
+        parts).
         """
         if plan is None:
             plan = self.preload_corpus(texts)
@@ -260,8 +277,8 @@ class DeviceEngine:
                 de_dev) in enumerate(staged):
             overflow = int(metas[i][0])
             if overflow & (stage4.OVERFLOW_PIECE_LEN | stage4.OVERFLOW_CAPACITY):
-                self.host_chunks += 1
-                results.append(("host", buf, doc_ends, parts))
+                self.fallback_chunks += 1
+                results.append(("fallback", buf, doc_ends, parts))
                 continue
             bucket_counts = metas[i][2:]
             N = len(buf)
@@ -293,20 +310,122 @@ class DeviceEngine:
             results.append(("ok", parts, tokens, n_tokens, doc_counts))
         return results
 
-    def _encode_host_chunk(self, buf, doc_ends, parts):
-        """[(doc_idx, int32 tokens)] of one chunk, by the host oracle. Chunk
-        boundaries are piece boundaries, so each chunk-document encodes on
-        its own."""
-        out = []
+    # ------------------------------------------------------------------
+    # long-piece fallback: boundaries and bucket merges on the device,
+    # packing and stitching on the host
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _chunk_valid(doc_ends: np.ndarray, parts, size: int) -> np.ndarray:
+        """Host-side validity mask (Stage A derives its own on the device)."""
+        used = int(doc_ends[len(parts) - 1])
+        valid = np.zeros(size, dtype=bool)
+        valid[:used] = True
+        for k in range(len(parts) - 1):
+            valid[int(doc_ends[k])] = False
+        return valid
+
+    def _pieces(self, buf, valid, bounds, used) -> Tuple[np.ndarray, np.ndarray]:
+        """(piece_starts, piece_lens) in flat-buffer coordinates."""
+        info = classify.classify_bytes(
+            torch.from_numpy(buf).to(self.device), self.tables.class_table,
+            torch.from_numpy(valid).to(self.device),
+        )
+        mask = boundaries.piece_starts(info, self.pattern).cpu().numpy()
+        starts = np.flatnonzero(mask[:used])
+        if len(starts) == 0:
+            return starts.astype(np.int64), starts.astype(np.int64)
+        # pieces end at the next piece start or their doc's end (separators
+        # are never piece starts, so clamp by doc end)
+        doc_ends = np.asarray([e for (_s, e) in bounds], dtype=np.int64)
+        next_start = np.append(starts[1:], used)
+        doc_of = np.searchsorted(doc_ends, starts, side="right")
+        doc_of = np.minimum(doc_of, len(doc_ends) - 1)
+        ends = np.minimum(next_start, doc_ends[doc_of])
+        return starts.astype(np.int64), (ends - starts).astype(np.int64)
+
+    def _encode_flat(self, buf, starts, lens):
+        """Token ids for every piece, stitched into one flat token array plus
+        per-piece offsets (order = piece order)."""
+        n_pieces = len(starts)
+        counts = np.zeros(n_pieces, dtype=np.int64)
+        piece_tokens: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        t = self.tables
+
+        bucket_of = np.searchsorted(np.asarray(_BUCKETS), lens, side="left")
+        oversized = bucket_of >= len(_BUCKETS)
+
+        for b_idx, lanes in enumerate(_BUCKETS):
+            sel = np.flatnonzero((bucket_of == b_idx) & ~oversized)
+            if len(sel) == 0:
+                continue
+            R = _next_pow2(len(sel), _MIN_ROWS)
+            mat = np.zeros((R, lanes), dtype=np.uint8)
+            blens = np.zeros((R,), dtype=np.int32)
+            # gather piece bytes: rows x lanes fancy index into flat buffer
+            gidx = starts[sel][:, None] + np.arange(lanes)[None, :]
+            np.minimum(gidx, len(buf) - 1, out=gidx)
+            rows = buf[gidx]
+            lane_mask = np.arange(lanes)[None, :] < lens[sel][:, None]
+            mat[: len(sel)] = np.where(lane_mask, rows, 0)
+            blens[: len(sel)] = lens[sel]
+
+            ids, active = merge.merge_rows(
+                torch.from_numpy(mat).to(self.device),
+                torch.from_numpy(blens).to(self.device),
+                t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask,
+            )
+            ids = ids[: len(sel)].cpu().numpy()
+            active = active[: len(sel)].cpu().numpy()
+            counts[sel] = active.sum(axis=1)
+            piece_tokens.append((sel, ids, active))
+
+        # pieces over the largest bucket merge on the host, one by one
+        over_tokens = {}
+        for pi in np.flatnonzero(oversized):
+            pc = bytes(buf[starts[pi] : starts[pi] + lens[pi]])
+            rank = self.oracle.ranks.get(pc)
+            toks = [rank] if rank is not None else byte_pair_merge(pc, self.oracle.ranks)
+            over_tokens[pi] = toks
+            counts[pi] = len(toks)
+            self.host_pieces += 1
+
+        # stitch: output offsets per piece, scatter each bucket's tokens
+        offsets = np.zeros(n_pieces + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        out = np.zeros(int(offsets[-1]), dtype=np.int32)
+        for sel, ids, active in piece_tokens:
+            pos_in_row = np.cumsum(active, axis=1) - 1
+            tgt = offsets[sel][:, None] + pos_in_row
+            out[tgt[active]] = ids[active]
+        for pi, toks in over_tokens.items():
+            out[offsets[pi] : offsets[pi] + len(toks)] = toks
+        return out, offsets
+
+    def _encode_chunk_fallback(self, buf, doc_ends, parts):
+        """[(doc_idx, int32 tokens)] of one chunk with a piece over the
+        largest bucket, one entry per chunk-document in order."""
+        valid = self._chunk_valid(doc_ends, parts, len(buf))
+        used = int(doc_ends[len(parts) - 1])
+        bounds = []
         prev = 0
-        for k, doc_idx in enumerate(parts):
+        for k in range(len(parts)):
             end = int(doc_ends[k])
             start = prev if k == 0 else prev + 1
-            text = bytes(buf[start:end]).decode("utf-8")
-            toks = self.oracle.encode_ordinary(text)[0]
-            out.append((doc_idx, np.asarray(toks, dtype=np.int32)))
+            bounds.append((start, end))
             prev = end
-        return out
+        starts, lens = self._pieces(buf, valid, bounds, used)
+        flat, offsets = self._encode_flat(buf, starts, lens)
+        ends_arr = np.asarray([e for (_s, e) in bounds], dtype=np.int64)
+        # pieces are in stream order: document d owns one contiguous run
+        doc_of = np.minimum(
+            np.searchsorted(ends_arr, starts, side="right"), len(ends_arr) - 1
+        )
+        first = np.searchsorted(doc_of, np.arange(len(parts) + 1), side="left")
+        return [
+            (doc_idx, flat[offsets[first[d]] : offsets[first[d + 1]]])
+            for d, doc_idx in enumerate(parts)
+        ]
 
     # ------------------------------------------------------------------
     # public batch API
@@ -341,8 +460,8 @@ class DeviceEngine:
         tok_pos = 0
         meta_pos = len(ok)
         for res in results:
-            if res[0] == "host":
-                for doc_idx, toks in self._encode_host_chunk(*res[1:]):
+            if res[0] == "fallback":
+                for doc_idx, toks in self._encode_chunk_fallback(*res[1:]):
                     parts_out[doc_idx].append(toks)
                 continue
             parts, d_size = res[1], int(res[4].shape[0])
@@ -379,8 +498,8 @@ class DeviceEngine:
             small = torch.cat([r[4] for r in ok]).cpu().numpy()
         pos = 0
         for res in results:
-            if res[0] == "host":
-                for doc_idx, toks in self._encode_host_chunk(*res[1:]):
+            if res[0] == "fallback":
+                for doc_idx, toks in self._encode_chunk_fallback(*res[1:]):
                     counts[doc_idx] += len(toks)
                 continue
             parts, doc_counts_dev = res[1], res[4]
@@ -388,6 +507,90 @@ class DeviceEngine:
                 counts[doc_idx] += int(c)
             pos += int(doc_counts_dev.shape[0])
         return counts
+
+    # ------------------------------------------------------------------
+    # batch decode
+    # ------------------------------------------------------------------
+
+    def _split_plain_lists(self, token_lists):
+        """Sort the lists into those of plain vocabulary ids (concatenated)
+        and those with a special or out-of-vocabulary id, which the host
+        oracle decodes list by list (keeping its errors and special tokens).
+
+        Returns (out, flat, splits): ``out[i]`` holds the oracle's bytes or
+        None, ``flat`` the int64 ids of the plain lists, ``splits`` their
+        (list index, lo, hi) ranges in ``flat``.
+        """
+        out: List[Optional[bytes]] = [None] * len(token_lists)
+        arrs: List[np.ndarray] = []
+        splits: List[Tuple[int, int, int]] = []
+        pos = 0
+        for i, toks in enumerate(token_lists):
+            arr = (
+                toks.astype(np.int64)
+                if isinstance(toks, np.ndarray)
+                else np.asarray(list(toks), dtype=np.int64)
+            )
+            if len(arr) and (arr.min() < 0 or arr.max() >= self.packed.n_tokens):
+                out[i] = self.oracle.decode_bytes(arr.tolist())
+            else:
+                splits.append((i, pos, pos + len(arr)))
+                arrs.append(arr)
+                pos += len(arr)
+        flat = np.concatenate(arrs) if pos else np.zeros(0, np.int64)
+        return out, flat, splits
+
+    @staticmethod
+    def _cut_lists(out, data: bytes, byte_ends, splits) -> List[bytes]:
+        for i, lo, hi in splits:
+            blo = 0 if lo == 0 else int(byte_ends[lo - 1])
+            bhi = 0 if hi == 0 else int(byte_ends[hi - 1])
+            out[i] = data[blo:bhi]
+        return [b if b is not None else b"" for b in out]
+
+    def decode_bytes_batch_host(self, token_lists) -> List[bytes]:
+        """Host decode in numpy: one fancy-index gather over the packed byte
+        pool. No device is touched."""
+        out, flat, splits = self._split_plain_lists(token_lists)
+        byte_ends, data = None, b""
+        if len(flat):
+            lens = self.packed.token_lengths[flat].astype(np.int64)
+            byte_ends = np.cumsum(lens)
+            total = int(byte_ends[-1])
+            # pool index of output byte p from token t: pool_start[t] +
+            # (p - out_start[t]); fold per-token terms, then one gather
+            adj = self.packed.token_offsets[flat].astype(np.int64) - (
+                byte_ends - lens
+            )
+            src = np.repeat(np.arange(len(flat)), lens)
+            data = self.packed.token_bytes[adj[src] + np.arange(total)].tobytes()
+        return self._cut_lists(out, data, byte_ends, splits)
+
+    def decode_bytes_batch_device(self, token_lists) -> List[bytes]:
+        """Decode on the engine's device: the lists' ids go up in one
+        tensor, ``ops/decode.decode_tokens`` runs once (one scan), and the
+        live byte prefix comes back in one fetch."""
+        out, flat, splits = self._split_plain_lists(token_lists)
+        byte_ends, data = None, b""
+        if len(flat):
+            n = len(flat)
+            tokens = np.full(_next_pow2(n, 1024), -1, dtype=np.int32)
+            tokens[:n] = flat
+            byte_ends = np.cumsum(self.packed.token_lengths[flat])
+            total_bytes = int(byte_ends[-1])
+            # the byte count is known on the host, so the output capacity
+            # tracks content
+            cap = _next_pow2(total_bytes, 8192)
+            t = self.tables
+            data_dev, _n_bytes = decode_ops.decode_tokens(
+                torch.from_numpy(tokens).to(self.device), n,
+                t.token_offsets, t.token_bytes, cap,
+            )
+            data = data_dev[:total_bytes].cpu().numpy().tobytes()
+        return self._cut_lists(out, data, byte_ends, splits)
+
+    def decode_bytes_batch(self, token_lists) -> List[bytes]:
+        return self.decode_bytes_batch_device(token_lists)
 
 
 def _maybe_asset_path(name: str):

@@ -1,7 +1,8 @@
 """Device byte-pair merge, vectorized across pieces.
 
 Counterpart of ``jtokkit_tpu/ops/merge.py`` (``pair_lookup_cat``,
-``t3_round``, ``merge_rows_t3``). Pieces are columns of a [W, R] matrix
+``t3_round``, ``merge_rows_t3``, and the row-major ``merge_rows`` of the
+long-piece fallback). In Stage B pieces are columns of a [W, R] matrix
 (W = bucket width, R = pieces) and the sequential min-rank merge of the
 reference runs one step per column per round:
 
@@ -29,7 +30,8 @@ MAX_RANK = 0x7FFFFFFF
 _H1 = (0x9E3779B1, 0x85EBCA77, 0x2C1B3C6D)
 _H2 = (0xC2B2AE3D, 0x27D4EB2F, 0x165667B1)
 
-# merge rounds run by merge_rows_t3 since the counter was last reset
+# merge rounds run by merge_rows_t3 and merge_rows since the counter was last
+# reset
 MERGE_ROUNDS = 0
 
 
@@ -121,5 +123,79 @@ def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
 
     while bool((rank.amin() < MAX_RANK).item()):
         ids, rank, active = t3_round(ids, rank, active, pair_rows_cat, table_mask)
+        MERGE_ROUNDS += 1
+    return ids, active
+
+
+def merge_rows(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+               table_mask):
+    """Exact merge of a row-major padded piece matrix (the long-piece
+    fallback's layout; semantics as :func:`merge_rows_t3`).
+
+    The reference function probes the scalar cuckoo tables; this one probes
+    the same entries through ``pair_rows_cat`` (columns 0-2 hold the same
+    u, v, id). The leftmost minimum of each row is computed as the smallest
+    lane that holds the row's minimum, which does not depend on how an
+    ``argmin`` breaks ties.
+
+    Args:
+      byte_mat: uint8[R, L] piece bytes, zero-padded.
+      lens: int32[R] piece byte lengths (<= L).
+
+    Returns (ids int32[R, L], token id per surviving span, junk at inactive
+    lanes; active bool[R, L], the surviving spans).
+    """
+    global MERGE_ROUNDS
+    R, L = byte_mat.shape
+    dev = byte_mat.device
+    lanes = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    b = byte_mat.to(torch.int32)
+
+    active = lanes < lens[:, None]
+    ids = torch.where(active, take_clip(byte_to_id, b), -1)
+
+    # seed pair ranks: spans are single bytes, one gather into the 64K table
+    b_next = torch.cat([b[:, 1:], b.new_zeros((R, 1))], dim=1)
+    is_pair = lanes + 1 < lens[:, None]
+    rank = torch.where(is_pair, take_clip(byte_pair_id, b * 256 + b_next), -1)
+    rank = torch.where(rank < 0, MAX_RANK, rank)
+
+    def at_lane(x, m):
+        return x.gather(1, m[:, None].to(torch.int64))[:, 0]
+
+    while bool((rank.amin() < MAX_RANK).item()):
+        minval = rank.amin(dim=1)
+        m = torch.where(rank == minval[:, None], lanes, L).amin(dim=1)
+        do = minval < MAX_RANK
+
+        m_col = m[:, None]
+        nxt = torch.where(active & (lanes > m_col), lanes, L).amin(dim=1)
+        prv = torch.where(active & (lanes < m_col), lanes, -1).amax(dim=1)
+        nxt2 = torch.where(active & (lanes > nxt[:, None]), lanes, L).amin(dim=1)
+
+        # merged token id == the pair rank (tiktoken rank == id)
+        one_m = lanes == m_col
+        one_n = lanes == nxt[:, None]
+        do_col = do[:, None]
+        new_ids = torch.where(one_m & do_col, minval[:, None], ids)
+        new_active = active & ~(one_n & do_col)
+
+        # the two affected neighbour ranks, before the "removal"
+        id_m = minval
+        id_prv = at_lane(ids, prv.clamp_min(0))
+        id_nxt2 = at_lane(ids, nxt2.clamp(max=L - 1))
+        found = pair_lookup_cat(
+            torch.stack([id_m, id_prv]), torch.stack([id_nxt2, id_m]),
+            pair_rows_cat, table_mask,
+        )
+        found = torch.where(found < 0, MAX_RANK, found)
+        rank_m = torch.where(nxt2 < L, found[0], MAX_RANK)
+        rank_prv = torch.where(prv >= 0, found[1], MAX_RANK)
+
+        one_p = lanes == prv[:, None]
+        new_rank = torch.where(one_m & do_col, rank_m[:, None], rank)
+        new_rank = torch.where(one_p & do_col, rank_prv[:, None], new_rank)
+        new_rank = torch.where(one_n & do_col, MAX_RANK, new_rank)
+        ids, rank, active = new_ids, new_rank, new_active
         MERGE_ROUNDS += 1
     return ids, active

@@ -18,20 +18,16 @@ read and write ``L*n*4`` bytes each (25.2 MB at L = 3, n = 2^20, about
 twice and relies on L2 to keep the second read off device memory; see the
 note at the top of the source.
 
-The library is built with ``nvcc`` on first use into ``_build/`` (named by
-the source's hash, so an edited source rebuilds) and loaded with ctypes.
+The library is built and loaded by :mod:`._build` at the first launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
+
+from ._build import KernelLibrary, cuda_device_index
 
 MAX_LEAVES = 4
 KINDS = {"max": 0, "last": 1, "add": 2}
@@ -41,75 +37,20 @@ KINDS = {"max": 0, "last": 1, "add": 2}
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "scan.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
-BUILD_LOG = ""  # nvcc's output (register and shared-memory use) of the last build
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found: the scan kernel cannot be built")
+def _declare(lib: ctypes.CDLL) -> None:
+    vp = ctypes.c_void_p
+    lib.jt_scan_leaves.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, vp, ctypes.c_int, vp,
+    ]
+    lib.jt_scan_leaves.restype = ctypes.c_int
+    lib.jt_scan_scratch_ints.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.jt_scan_scratch_ints.restype = ctypes.c_longlong
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libjtokkit_scan_{digest.hexdigest()[:16]}.so")
-
-
-def build() -> str:
-    """Compile the kernel library if this source has no build yet; returns
-    its path."""
-    global BUILD_LOG
-    path = library_path()
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.tmp.{os.getpid()}"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build the scan kernel:\n{BUILD_LOG}")
-        os.replace(tmp, path)
-    return path
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        with _lib_lock:
-            if _lib is None:
-                lib = ctypes.CDLL(build())
-                vp = ctypes.c_void_p
-                lib.jt_scan_leaves.argtypes = [
-                    vp, vp, vp, vp, vp, vp, vp, vp,
-                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, vp, ctypes.c_int, vp,
-                ]
-                lib.jt_scan_leaves.restype = ctypes.c_int
-                lib.jt_scan_scratch_ints.argtypes = [
-                    ctypes.c_int, ctypes.c_longlong,
-                ]
-                lib.jt_scan_scratch_ints.restype = ctypes.c_longlong
-                _lib = lib
-    return _lib
+LIBRARY = KernelLibrary("scan", _declare)
 
 
 def _check(leaves, kinds):
@@ -143,7 +84,7 @@ def scan_leaves_cuda(leaves, kinds, *, reverse: bool = False):
     out = torch.empty((L, n), dtype=torch.int32, device=dev)
     if n == 0:
         return list(out.unbind(0))
-    lib = _library()
+    lib = LIBRARY.load()
     scratch = torch.empty(
         (max(int(lib.jt_scan_scratch_ints(L, n)), 1),),
         dtype=torch.int32, device=dev,
@@ -155,7 +96,7 @@ def scan_leaves_cuda(leaves, kinds, *, reverse: bool = False):
     outs = [out[j].data_ptr() for j in range(L)] + [None] * (MAX_LEAVES - L)
     rc = lib.jt_scan_leaves(
         *ins, *outs, L, n, code, int(reverse), scratch.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        cuda_device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -87,20 +87,26 @@ def test_engine_matches_jax_and_oracle(enc_name, part):
         texts = EDGE_CASES
     else:
         texts = _fuzz(99, 300)
+    port = engines(enc_name)[2]
+    before = (port.fallback_chunks, port.host_pieces)
     check_batch(enc_name, texts)
-    assert engines(enc_name)[2].host_chunks == 0
+    assert (port.fallback_chunks, port.host_pieces) == before
 
 
 def test_long_piece_goes_to_the_host():
     """A 5000-byte piece is longer than the largest merge bucket: its chunk
-    is encoded by the host oracle and counted."""
+    takes the fallback, which merges that piece (and the 4500-byte one) on
+    the host and the rest of the chunk on the device."""
     orc, _jax, port = engines("cl100k_base")
-    before = port.host_chunks
+    chunks, pieces = port.fallback_chunks, port.host_pieces
     texts = ["a" * 5000, "short text", "x " + "b" * 4500 + " y"]
     got = port.encode_ordinary_batch(texts)
     assert got == [orc.encode_ordinary(t)[0] for t in texts]
-    assert port.host_chunks > before
+    assert port.fallback_chunks == chunks + 1
+    assert port.host_pieces == pieces + 2
     assert port.count_tokens_batch(texts) == [len(g) for g in got]
+    assert port.fallback_chunks == chunks + 2
+    assert port.host_pieces == pieces + 4
 
 
 def test_capacity_retry_is_exact():
@@ -108,12 +114,12 @@ def test_capacity_retry_is_exact():
     (a second Stage A run with 5 more scans) keeps the chunk on the device."""
     orc, _jax, port = engines("cl100k_base")
     text = "a1" * 30_000
-    runs, calls, host = port.stage_a_runs, scan.PLAIN_CALLS, port.host_chunks
+    runs, calls, host = port.stage_a_runs, scan.PLAIN_CALLS, port.fallback_chunks
     got = port.encode_ordinary_batch([text])
     assert got[0] == orc.encode_ordinary(text)[0]
     assert port.stage_a_runs - runs == 2
     assert scan.PLAIN_CALLS - calls == 5 * 2
-    assert port.host_chunks == host
+    assert port.fallback_chunks == host
 
 
 def test_multi_chunk_documents():
@@ -188,6 +194,12 @@ class Block:
 sys.meta_path.insert(0, Block())
 import jtokkit_tpu_torch
 import jtokkit_tpu_torch.engine.device
+import jtokkit_tpu_torch.ops.boundaries
+import jtokkit_tpu_torch.ops.decode
+import jtokkit_tpu_torch.ops.gather
+import jtokkit_tpu_torch.ops.merge
+import jtokkit_tpu_torch.ops.scan
+import jtokkit_tpu_torch.scripts.profile_gather
 import jtokkit_tpu_torch.utils.corpus
 """
 
