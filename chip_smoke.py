@@ -14,10 +14,15 @@ Phases (each raises on failure, and then no result line is printed):
    gather.cu) from the checkout, one nvcc each, started together; prints the
    build time and each kernel's registers and shared memory.
 3. Each kernel against its plain PyTorch version on the card, exact int32
-   equality: the scan at Stage A's shapes, decode's (one max leaf of 2^13,
-   2^20, 2^24) and ragged ones; the table gather at [4096, 128] lookups of a
-   2048-entry table, at tables of 1, 256 and the limit, at ragged counts and
-   with out-of-range indices. Prints kernel, plain, library and bound times.
+   equality. The scan first where a single-pass look-back can go wrong:
+   1,000 calls back to back on one scratch and then more and fewer tiles,
+   two streams at once, n = 2^24 at four leaves in both directions (more
+   tiles than resident blocks), a leaf at an odd offset; then at Stage A's
+   shapes, decode's (one max leaf of 2^13, 2^20, 2^24), the one-launch floor
+   and ragged ones. The table gather at [4096, 128] lookups of a 2048-entry
+   table, at 2^24 lookups and at 4 (the launch floor), at tables of 1, 256,
+   the longest bulk copy and the limit, at ragged counts and with
+   out-of-range indices. Prints kernel, plain, library and bound times.
 4. The profiling entry point (jtokkit_tpu_torch.scripts.profile_gather), the
    gather kernel's path: its lines, and the kernel's launch count.
 5. Encode and count at full size: cl100k_base through the public registry on
@@ -32,7 +37,8 @@ Phases (each raises on failure, and then no result line is printed):
    as the oracle does.
 7. Long pieces: english documents with a 5000-byte and a 4500-byte piece and
    a 3000-byte CJK run mixed in; tokens equal the oracle, the chunks take the
-   device fallback, and exactly the pieces over 4096 bytes merge on the host.
+   device fallback (3 scan launches per fallback chunk beside Stage A's 5),
+   and exactly the pieces over 4096 bytes merge on the host.
 8. One JSON line of kernel numbers, then the last line
    {"ok": true, "device": {...}}.
 
@@ -76,6 +82,87 @@ def make_leaves(kinds, n, gen):
     return out
 
 
+def same(got, want):
+    """0-d bool on the card: every leaf of ``got`` equals ``want``'s."""
+    import torch
+
+    return torch.stack([(g == w).all() for g, w in zip(got, want)]).all()
+
+
+def phase_scan_hazards(scan, gen):
+    """What a single-pass scan on a persistent scratch can get wrong: stale
+    status words, the ticket counter's reset, two streams, forward progress
+    with more tiles than resident blocks, unaligned leaves. A hang here
+    shows as the caller's time limit, so each case logs a line first."""
+    import torch
+
+    def case(kinds, n, reverse=False):
+        leaves = make_leaves(kinds, n, gen)
+        return leaves, kinds, reverse, scan.scan_leaves_plain(leaves, kinds, reverse=reverse)
+
+    def run(c):
+        return scan.scan_leaves_cuda(c[0], c[1], reverse=c[2])
+
+    log("scan: 1,000 calls back to back on one scratch, then more tiles, then fewer")
+    first = case(("max", "max", "add"), 1 << 20)
+    more = case(("last",) * 4, (1 << 22) + 5, True)
+    fewer = case(("add",), 5000)
+    run(first)  # the stream's scratch exists from here on
+    scratch = scan.SCRATCH[(torch.cuda.current_device(),
+                            torch.cuda.current_stream().cuda_stream)].words
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    for _ in range(1000):
+        ok &= same(run(first), first[3])
+    for c in (more, fewer, first, more):
+        ok &= same(run(c), c[3])
+    torch.cuda.synchronize()
+    if not bool(ok):
+        raise AssertionError("scan: repeated calls on one scratch went wrong")
+    if scan.SCRATCH[(torch.cuda.current_device(),
+                     torch.cuda.current_stream().cuda_stream)].words is not scratch:
+        raise AssertionError("scan: the scratch was allocated anew")
+
+    log("scan: two streams at once")
+    a = case(("max", "last", "add"), (1 << 22) + 3)
+    b = case(("last", "add"), (1 << 21) + 1, True)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    flags = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for st, c in zip(streams, (a, b)):
+            with torch.cuda.stream(st):
+                flags.append(same(run(c), c[3]))
+    torch.cuda.synchronize()
+    if not all(bool(f) for f in flags):
+        raise AssertionError("scan: two streams at once went wrong")
+    dev = torch.cuda.current_device()
+    handles = [st.cuda_stream for st in streams + [torch.cuda.current_stream()]]
+    if len({id(scan.SCRATCH[(dev, h)].words) for h in handles}) != 3:
+        raise AssertionError("scan: streams share a scratch")
+
+    for reverse in (False, True):
+        log(f"scan: n = 2^24 at 4 leaves, reverse={reverse} (more tiles than resident blocks)")
+        c = case(("max", "last", "add", "last"), 1 << 24, reverse)
+        got = run(c)
+        torch.cuda.synchronize()
+        if not bool(same(got, c[3])):
+            raise AssertionError(f"scan: n = 2^24 at 4 leaves, reverse={reverse}")
+
+    log("scan: leaves at an odd offset (4-byte loads)")
+    for reverse in (False, True):
+        leaves = [x[1:] for x in make_leaves(("max", "last", "add"), (1 << 20) + 1, gen)]
+        if all(x.data_ptr() % 16 == 0 for x in leaves):
+            raise AssertionError("scan: the odd-offset leaves are aligned")
+        kinds = ("max", "last", "add")
+        got = scan.scan_leaves_cuda(leaves, kinds, reverse=reverse)
+        want = scan.scan_leaves_plain(leaves, kinds, reverse=reverse)
+        torch.cuda.synchronize()
+        if not bool(same(got, want)):
+            raise AssertionError("scan: leaves at an odd offset")
+    log("scan: repeated calls, two streams, 2^24 x 4 and odd offsets equal the plain version")
+
+
 def phase_kernel(scan):
     import numpy as np
     import torch
@@ -84,6 +171,7 @@ def phase_kernel(scan):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    phase_scan_hazards(scan, gen)
     main_shapes = [
         # (kinds, n, reverse): Stage A's scans at a 1 MiB chunk
         (("max", "max", "max"), 1 << 20, False),   # boundary scan 1, ascii
@@ -98,6 +186,11 @@ def phase_kernel(scan):
         (("max",), 1 << 13, False),
         (("max",), 1 << 20, False),
         (("max",), 1 << 24, False),
+        # the floor: one launch of one block
+        (("max",), 1, False),
+        # more tiles than resident blocks, both directions
+        (("max",) * 4, 1 << 24, False),
+        (("last",) * 4, 1 << 24, True),
     ]
     max_err = 0
     rows = []
@@ -112,7 +205,7 @@ def phase_kernel(scan):
             if err:
                 raise AssertionError(f"kernel != plain at {kinds} n={n}")
         ms = device_ms(lambda: scan.scan_leaves_cuda(leaves, kinds, reverse=reverse), 200)
-        slow_iters = 50 if n <= 1 << 20 else 5
+        slow_iters = 50 if n <= 1 << 20 else (5 if len(kinds) == 1 else 2)
         plain_ms = device_ms(lambda: scan.scan_leaves_plain(leaves, kinds, reverse=reverse), slow_iters)
         library_ms = None
         if "last" not in kinds:
@@ -183,7 +276,7 @@ def phase_gather(gather):
     table = ints(-1000, 1000, (2048,))
     idx = ints(0, 2048, (4096, 128))
     max_err = max(max_err, check(table, idx, "[4096,128] x 2048"))
-    for size in (1, 256, gather.MAX_TABLE):
+    for size in (1, 3, 256, gather.MAX_BULK_TABLE, gather.MAX_TABLE):
         t = ints(-1000, 1000, (size,))
         max_err = max(max_err, check(t, ints(0, size, (4096, 128)), f"table {size}"))
         # out-of-range indices clamp, INT32 extremes included
@@ -192,8 +285,12 @@ def phase_gather(gather):
         max_err = max(max_err, check(t, wild, f"table {size}, out of range"))
     for n in (0, 1, 127, 1_000_003):
         max_err = max(max_err, check(table, ints(0, 2048, (n,)), f"{n} elements"))
-    # a view whose data is not 16-byte aligned takes the scalar loop
+    # a view whose data is not 16-byte aligned takes the scalar loop, and a
+    # table at an odd offset is copied by plain loads
     max_err = max(max_err, check(table, ints(0, 2048, (4099,))[1:], "unaligned"))
+    max_err = max(max_err, check(ints(-9, 9, (2049,))[1:], idx, "unaligned table"))
+    many = ints(-5, 2053, (1 << 24,))
+    max_err = max(max_err, check(table, many, "2^24 lookups"))
     before = gather.KERNEL_LAUNCHES
     if gather.take_table_cuda(table, ints(0, 2048, (0, 128))).shape != (0, 128):
         raise AssertionError("gather of no elements: wrong shape")
@@ -206,24 +303,35 @@ def phase_gather(gather):
     else:
         raise AssertionError("a table over the limit was accepted")
 
-    flat = idx.reshape(-1)
-    ms = device_ms(lambda: gather.take_table_cuda(table, idx), 500)
-    plain_ms = device_ms(lambda: gather.take_table_plain(table, idx), 200)
-    library_ms = device_ms(lambda: table.index_select(0, flat), 500)
-    big = ints(-1000, 1000, (gather.MAX_TABLE,))
-    big_idx = ints(0, gather.MAX_TABLE, (4096, 128))
-    big_ms = device_ms(lambda: gather.take_table_cuda(big, big_idx), 200)
-    n = idx.numel()
-    bound_ms = (4 * n + 4 * n + 4 * table.numel()) / HBM_BYTES_PER_S * 1e3
-    log(f"gather [4096,128] x 2048: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"library (index_select) {library_ms:.4f} ms  bound {bound_ms:.5f} ms  "
-        f"({bound_ms / ms:.0%} of bound); table {gather.MAX_TABLE}: {big_ms:.4f} ms")
+    def timed(tbl, ix, iters):
+        """Kernel, plain, index_select and bound ms at one shape."""
+        flat = ix.reshape(-1)
+        n = ix.numel()
+        row = {
+            "idx": list(ix.shape), "table": tbl.numel(),
+            "ms": device_ms(lambda: gather.take_table_cuda(tbl, ix), iters),
+            "plain_ms": device_ms(lambda: gather.take_table_plain(tbl, ix), max(iters // 4, 5)),
+            "library_ms": device_ms(lambda: tbl.index_select(0, flat), iters),
+            "bound_ms": (4 * n + 4 * n + 4 * tbl.numel()) / HBM_BYTES_PER_S * 1e3,
+        }
+        log(f"gather {row['idx']} x {row['table']}: kernel {row['ms']:.5f} ms  "
+            f"plain {row['plain_ms']:.5f} ms  library (index_select) "
+            f"{row['library_ms']:.5f} ms  bound {row['bound_ms']:.5f} ms  "
+            f"({row['bound_ms'] / row['ms']:.0%} of bound)")
+        return row
+
+    # the profiled shape; where the launch no longer counts; the launch floor;
+    # the longest table the bulk copy takes and the limit (plain loads)
+    head = timed(table, idx, 500)
+    shapes = [head, timed(table, many.clamp(0, 2047), 50), timed(table, ints(0, 2048, (4,)), 500)]
+    for size in (gather.MAX_BULK_TABLE, gather.MAX_TABLE):
+        shapes.append(timed(ints(-1000, 1000, (size,)), ints(0, size, (4096, 128)), 200))
     log(f"gather kernel == plain version on every shape (max_abs_err {max_err})")
     return {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "max_abs_err": max_err,
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
+        "bound_ms": head["bound_ms"], "max_abs_err": max_err,
         "shape": {"idx": [4096, 128], "table": 2048},
-        "limit_table_ms": big_ms,
+        "shapes": shapes, "limit_table_ms": shapes[-1]["ms"],
     }
 
 
@@ -424,6 +532,7 @@ def phase_long_pieces(enc, card: str):
     scan.PLAIN_CALLS = 0
     merge.MERGE_ROUNDS = 0
     chunks0, pieces0 = engine.fallback_chunks, engine.host_pieces
+    runs0 = engine.stage_a_runs
     t = time.time()
     tokens = enc.encode_ordinary_batch(docs)
     torch.cuda.synchronize()
@@ -445,6 +554,12 @@ def phase_long_pieces(enc, card: str):
         raise AssertionError("long pieces: count took another route than encode")
     if counts != [len(t) for t in tokens]:
         raise AssertionError("long pieces: counts differ from token lengths")
+    # Stage A's five scans per run, the fallback boundaries' three per chunk
+    runs = engine.stage_a_runs - runs0
+    if launches != 5 * runs + 3 * 2 * chunks:
+        raise AssertionError(
+            f"long pieces: {launches} scan launches for {runs} Stage A runs "
+            f"and {2 * chunks} fallback chunks")
     oracle = enc.oracle
     for d, got in zip(docs, tokens):
         if got != oracle.encode_ordinary(d)[0]:
@@ -485,7 +600,7 @@ def phase_profile(card: str, out_dir: str):
     scan_us = sum(
         e.self_device_time_total for e in device
         if "at::native" not in e.key
-        and any(k in e.key for k in ("reduce_kernel", "carry_kernel", "scan_kernel"))
+        and "scan_lookback_kernel" in e.key
     )
     log(f"profile (2 MB english encode): wall {wall * 1e3:.1f} ms, device "
         f"kernels {kernel_us / 1e3:.1f} ms ({kernel_us / 1e6 / wall:.1%} busy), "
@@ -562,6 +677,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": gather_row["library_ms"],
         "shape": gather_row["shape"],
+        "shapes": gather_row["shapes"],
         "limit_table_ms": gather_row["limit_table_ms"],
     }]
     summary = {name: {"mb": r[3], "encode_mb_s": r[3] / r[4],

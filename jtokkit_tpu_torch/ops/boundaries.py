@@ -19,9 +19,10 @@ per-character rules over the byte stream:
 - cl100k digit runs split into groups of three codepoints from the run
   start.
 
-Every running maximum goes through :func:`..ops.scan.scan_leaves` at one
-leaf (the kernel on the card, the plain version on the CPU). Its leaves hold
-a position or ordinal >= 0, or -1.
+Every running maximum goes through :func:`..ops.scan.scan_leaves` (the
+kernel on the card, the plain version on the CPU), and maxima that do not
+depend on each other share one multi-leaf call: three calls per cl100k
+stream, two for gpt2. The leaves hold a position or ordinal >= 0, or -1.
 
 Returns a boolean piece-start mask over bytes; piece k spans
 [start_k, start_{k+1}).
@@ -42,8 +43,9 @@ _ONE_CHAR = (ord("s"), ord("t"), ord("m"), ord("d"))
 _TWO_CHAR = ((ord("r"), ord("e")), (ord("v"), ord("e")), (ord("l"), ord("l")))
 
 
-def _cummax(x):
-    return scan.scan_leaves([x], ["max"])[0]
+def _cummax(*leaves):
+    """Running maximum of each leaf, all in one scan call."""
+    return scan.scan_leaves(list(leaves), ["max"] * len(leaves))
 
 
 def _shift_right(x, fill, k: int = 1):
@@ -92,18 +94,21 @@ def piece_starts(info: dict, pattern: str) -> torch.Tensor:
 
     # ---------------- whitespace run structure ----------------------------
     ws_run_start_b = is_ws & ~_shift_right(is_ws, False)
-    run_start_pos = _cummax(torch.where(ws_run_start_b, idx, -1))
     # run end: distance to run start on the reversed array
     ws_rev = is_ws.flip(0)
-    run_end_rev = _cummax(
-        torch.where(ws_rev & ~_shift_right(ws_rev, False), idx, -1)
-    )
+    leaves = [
+        torch.where(ws_run_start_b, idx, -1),
+        torch.where(ws_rev & ~_shift_right(ws_rev, False), idx, -1),
+    ]
+    if is_cl:
+        leaves.append(torch.where(~is_crlf_b, idx, -1))
+    run_start_pos, run_end_rev, *rest = _cummax(*leaves)
     run_end_pos = (n - 1) - run_end_rev.flip(0)  # last byte of the ws run
 
     if is_cl:
         # cl100k: the CR/LF prefix of a ws run following punctuation is
         # absorbed into the punctuation piece (`[\r\n]*` of alternative 4)
-        last_non_crlf = _cummax(torch.where(~is_crlf_b, idx, -1))
+        (last_non_crlf,) = rest
         in_crlf_prefix = is_crlf_b & (last_non_crlf < run_start_pos)
         prev_of_run = _gather(cls, run_start_pos - 1, _BOS, run_start_pos > 0)
         absorbed = in_crlf_prefix & (prev_of_run == OTHER)
@@ -112,10 +117,11 @@ def piece_starts(info: dict, pattern: str) -> torch.Tensor:
         eff_ws = is_ws
 
     eff_run_start_b = eff_ws & ~_shift_right(eff_ws, False)
-    eff_run_start_pos = _cummax(torch.where(eff_run_start_b, idx, -1))
-
     # per byte: last CR/LF position within the effective run, read at run end
-    last_crlf_pos = _cummax(torch.where(is_crlf_b & eff_ws, idx, -1))
+    eff_run_start_pos, last_crlf_pos = _cummax(
+        torch.where(eff_run_start_b, idx, -1),
+        torch.where(is_crlf_b & eff_ws, idx, -1),
+    )
     last_crlf_whole = _gather(last_crlf_pos, run_end_pos, -1, is_ws)
     next_after_run = _gather(cls, run_end_pos + 1, _BOS, (run_end_pos + 1) < n)
     # PAD past the valid length behaves like end-of-input for the trailing-
@@ -214,7 +220,7 @@ def piece_starts(info: dict, pattern: str) -> torch.Tensor:
     if is_cl:
         char_ord = torch.cumsum(start, 0, dtype=torch.int32) - 1
         digit_run_start = start & (cls == NUMBER) & (prev_cls != NUMBER)
-        run_start_ord = _cummax(torch.where(digit_run_start, char_ord, -1))
+        (run_start_ord,) = _cummax(torch.where(digit_run_start, char_ord, -1))
         pos_in_run = char_ord - run_start_ord
         number_piece_start = start & (cls == NUMBER) & (pos_in_run % 3 == 0)
     else:

@@ -14,9 +14,19 @@ call, each with its own combine:
 A CUDA tensor goes to the kernel in ``csrc/scan.cu`` and nowhere else; a CPU
 tensor goes to :func:`scan_leaves_plain`. The kernel is memory-bound: it must
 read and write ``L*n*4`` bytes each (25.2 MB at L = 3, n = 2^20, about
-7.5 us at the H100's 3.35 TB/s). Its reduce-then-scan design reads the input
-twice and relies on L2 to keep the second read off device memory; see the
-note at the top of the source.
+7.5 us at the H100's 3.35 TB/s). It is a single-pass scan with decoupled
+look-back: one launch per call, each input word read once; see the note at
+the top of the source.
+
+The kernel's tiles talk through a small scratch (a ticket counter and one
+64-bit status word per tile and leaf). The scratch is persistent: this
+module keeps one per (device, stream), zeroed when it is made and grown when
+a call needs more, so a call is one launch and allocates only its output.
+The kernel tells a call's status words from an earlier call's by an epoch it
+keeps in the scratch itself; status words hold 30 bits of it, so the wrapper
+zeroes them once in :data:`CLEAR_EVERY` calls. Leaves and outputs move as
+16-byte words; a leaf that is a view at an odd offset (not 16-byte aligned)
+is taken all the same, through the kernel's 4-byte loads.
 
 The library is built and loaded by :mod:`._build` at the first launch.
 """
@@ -32,25 +42,87 @@ from ._build import KernelLibrary, cuda_device_index
 MAX_LEAVES = 4
 KINDS = {"max": 0, "last": 1, "add": 2}
 
+TILE = 8192  # scan positions per block of the kernel
+HEADER_WORDS = 2  # 64-bit words of the scratch ahead of the status words
+MIN_SCRATCH_WORDS = 1 << 13  # 64 KB: L = 3 at n = 2^24 without growing
+EPOCH_BITS = 30  # of the call epoch in a status word
+CLEAR_EVERY = (1 << EPOCH_BITS) - 1  # calls between two clears of a scratch
+
 # plain counters: wrapper launches of the kernel, and scans that took the
 # plain version because their tensors lay on the CPU
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def declare_functions(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
     lib.jt_scan_leaves.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, vp, ctypes.c_int, vp,
+        ctypes.c_int, vp, ctypes.c_longlong, ctypes.c_int, vp,
     ]
     lib.jt_scan_leaves.restype = ctypes.c_int
-    lib.jt_scan_scratch_ints.argtypes = [ctypes.c_int, ctypes.c_longlong]
-    lib.jt_scan_scratch_ints.restype = ctypes.c_longlong
+    for fn in (lib.jt_scan_tile, lib.jt_scan_header_words):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    declare_functions(lib)
+    if (lib.jt_scan_tile(), lib.jt_scan_header_words()) != (TILE, HEADER_WORDS):
+        raise RuntimeError("the scan library's tile or header differs from ops/scan.py")
 
 
 LIBRARY = KernelLibrary("scan", _declare)
+
+
+class _Scratch:
+    """One stream's scratch: int64 words (zeroed when made) and the calls
+    since its status words were last all zero."""
+
+    __slots__ = ("words", "calls")
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+        self.calls = 0
+
+
+SCRATCH: dict = {}  # (device index, stream handle) -> _Scratch
+
+
+def scratch_words(n_leaves: int, n: int) -> int:
+    """64-bit words a scan of ``n_leaves`` leaves of length ``n`` needs."""
+    return HEADER_WORDS + n_leaves * (-(-n // TILE))
+
+
+def scratch_for(device: torch.device, index, stream: int, n_words: int):
+    """The persistent scratch of (device ``index``, ``stream``), at least
+    ``n_words`` long, counted as used by one more call.
+
+    A new or grown scratch is a zeroed tensor made on the current stream
+    (the caller's, which is ``stream``), so the one it replaces returns to
+    the allocator in stream order. Two streams never share one.
+    """
+    key = (index, stream)
+    entry = SCRATCH.get(key)
+    if entry is None or entry.words.numel() < n_words:
+        size = max(MIN_SCRATCH_WORDS, 1 << (n_words - 1).bit_length())
+        entry = SCRATCH[key] = _Scratch(
+            torch.zeros(size, dtype=torch.int64, device=device)
+        )
+    elif entry.calls >= CLEAR_EVERY:
+        # the epoch in a status word is about to come round again
+        entry.words[HEADER_WORDS:].zero_()
+        entry.calls = 0
+    entry.calls += 1
+    return entry.words
+
+
+def empty_rows(n_leaves: int, n: int, device):
+    """``n_leaves`` uninitialised int32[n] rows of one buffer, each starting
+    on a 16-byte boundary (the kernel stores 16-byte words)."""
+    buf = torch.empty((n_leaves, (n + 3) & ~3), dtype=torch.int32, device=device)
+    return [buf[j, :n] for j in range(n_leaves)]
 
 
 def _check(leaves, kinds):
@@ -81,28 +153,26 @@ def scan_leaves_cuda(leaves, kinds, *, reverse: bool = False):
     if not all(x.is_contiguous() for x in leaves):
         raise ValueError("scan leaves must be contiguous")
     L = len(leaves)
-    out = torch.empty((L, n), dtype=torch.int32, device=dev)
+    out = empty_rows(L, n, dev)
     if n == 0:
-        return list(out.unbind(0))
+        return out
     lib = LIBRARY.load()
-    scratch = torch.empty(
-        (max(int(lib.jt_scan_scratch_ints(L, n)), 1),),
-        dtype=torch.int32, device=dev,
-    )
+    index = cuda_device_index(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = scratch_for(dev, index, stream, scratch_words(L, n))
     code = 0
     for j, k in enumerate(kinds):
         code |= KINDS[k] << (2 * j)
     ins = [x.data_ptr() for x in leaves] + [None] * (MAX_LEAVES - L)
-    outs = [out[j].data_ptr() for j in range(L)] + [None] * (MAX_LEAVES - L)
+    outs = [x.data_ptr() for x in out] + [None] * (MAX_LEAVES - L)
     rc = lib.jt_scan_leaves(
         *ins, *outs, L, n, code, int(reverse), scratch.data_ptr(),
-        cuda_device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
+        scratch.numel(), index, stream,
     )
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES += 1
-    return list(out.unbind(0))
+    return out
 
 
 def _scan_one_plain(x, kind):

@@ -192,3 +192,16 @@ def test_decode_batch_through_the_facade():
     assert enc.decode_batch([[100257], [9906]]) == ["<|endoftext|>", "Hello"]
     with pytest.raises(UnknownTokenError):
         enc.decode_batch([[99_999_999]])
+
+
+def test_decode_timing_script_raises_without_a_card(monkeypatch):
+    """``scripts/time_decode.py`` times the card's decode and nothing else."""
+    import os
+
+    from jtokkit_tpu_torch.scripts import time_decode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.path", list(__import__("sys").path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        time_decode.main(root, mb=0.01, repeats=1)

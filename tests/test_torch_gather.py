@@ -105,3 +105,74 @@ def test_profile_entry_point_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         profile_gather.main()
     assert gather.KERNEL_LAUNCHES == launches
+
+
+# ---- the launch the CUDA wrapper plans in Python (no card, no launch) -----
+
+H100_SMS = 132
+
+
+def _source_constant(name):
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(gather.__file__), "..", "csrc", "gather.cu")
+    with open(path) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+def test_python_constants_match_the_source():
+    assert _source_constant("kMaxSharedBytes") == gather.BLOCK_SHARED_BYTES
+    assert _source_constant("kBarrierBytes") == gather.BARRIER_BYTES
+    assert _source_constant("kMaxThreads") == 1024
+    assert gather.MAX_BULK_TABLE == gather.MAX_TABLE - 4
+    assert 1 <= gather.GRID_VECS_PER_THREAD <= _source_constant("kVecsPerTrip")
+
+
+@pytest.mark.parametrize("table_len,n,want", [
+    # the profiled shape: every lookup in flight at once, two vectors a thread
+    (2048, 4096 * 128, gather.LaunchPlan(256, 256, 8192, 131072)),
+    # many lookups: as many blocks as the card holds at once (8 an SM)
+    (2048, 1 << 24, gather.LaunchPlan(256, 8 * H100_SMS, 8192, 1 << 22)),
+    # the launch floor
+    (2048, 4, gather.LaunchPlan(256, 1, 8192, 1)),
+    # a table too short for a 16-byte bulk copy
+    (3, 1000, gather.LaunchPlan(256, 1, 0, 250)),
+    # two blocks an SM: 1,024 threads each
+    (28000, 1 << 24, gather.LaunchPlan(1024, 2 * H100_SMS, 112000, 1 << 22)),
+    # the longest bulk copy, and the limit, which has no room for the barrier
+    (gather.MAX_BULK_TABLE, 4096 * 128,
+     gather.LaunchPlan(1024, 128, 4 * gather.MAX_BULK_TABLE & ~15, 131072)),
+    (gather.MAX_TABLE, 4096 * 128, gather.LaunchPlan(1024, 128, 0, 131072)),
+    (gather.MAX_TABLE, 1 << 24, gather.LaunchPlan(1024, H100_SMS, 0, 1 << 22)),
+])
+def test_launch_plan_by_table_size(table_len, n, want):
+    assert gather.launch_plan(table_len, n, H100_SMS) == want
+
+
+def test_launch_plan_for_unaligned_pointers():
+    # a table at an odd offset: no bulk copy; indices or output at one: no vectors
+    assert gather.launch_plan(2048, 1000, H100_SMS, table_aligned=False).bulk_bytes == 0
+    plan = gather.launch_plan(2048, 1_000_003, H100_SMS, vectors=False)
+    assert plan.n_vec == 0 and plan.bulk_bytes == 8192
+    assert plan.blocks == 8 * H100_SMS
+
+
+@pytest.mark.parametrize("table_len", [1, 4, 5, 255, 2048, 6999, 7000, 9000, 14000,
+                                       19000, 28000, 40000, gather.MAX_BULK_TABLE,
+                                       gather.MAX_BULK_TABLE + 1, gather.MAX_TABLE])
+def test_launch_plan_fits_the_card(table_len):
+    for n in (1, 4, 1000, 4096 * 128, 1 << 24):
+        plan = gather.launch_plan(table_len, n, H100_SMS)
+        shared = 4 * table_len
+        if plan.bulk_bytes:
+            shared = ((shared + 15) & ~15) + gather.BARRIER_BYTES
+            assert plan.bulk_bytes % 16 == 0 and 4 * table_len - plan.bulk_bytes < 16
+        assert shared <= gather.BLOCK_SHARED_BYTES
+        assert plan.threads in (256, 512, 1024)
+        resident = plan.blocks / H100_SMS  # blocks an SM if all run at once
+        assert resident * plan.threads <= gather.SM_THREADS
+        assert resident * (shared + gather.BLOCK_RESERVED_BYTES) <= gather.SM_SHARED_BYTES
+        assert 1 <= plan.blocks and 4 * plan.n_vec <= n
+        # no thread is planned more than one block's worth of idle blocks
+        assert (plan.blocks - 1) * plan.threads < max(plan.n_vec, n)

@@ -103,3 +103,123 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         scan.scan_leaves_cuda([torch.zeros(8, dtype=torch.int32)], ["max"])
 
+
+
+# ---- what the CUDA wrapper decides in Python (no card, no launch) ---------
+
+
+def _source_constant(name):
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(scan.__file__), "..", "csrc", "scan.cu")
+    with open(path) as f:
+        m = re.search(rf"constexpr \w+ {name} = ([^;]+);", f.read())
+    return m.group(1)
+
+
+def test_python_constants_match_the_source():
+    tile = int(_source_constant("kThreads")) * int(_source_constant("kItems"))
+    assert tile == scan.TILE
+    assert int(_source_constant("kHeaderWords")) == scan.HEADER_WORDS
+    assert _source_constant("kEpochMask") == f"(1u << {scan.EPOCH_BITS}) - 1u"
+    assert int(_source_constant("kMaxLeaves")) == scan.MAX_LEAVES
+    assert scan.CLEAR_EVERY < 1 << scan.EPOCH_BITS
+
+
+@pytest.mark.parametrize("n_leaves,n,tiles", [
+    (1, 1, 1), (1, scan.TILE, 1), (1, scan.TILE + 1, 2), (3, 1 << 20, 128),
+    (4, 1 << 24, 2048), (2, (1 << 15) + 5, 5),
+])
+def test_scratch_words_is_header_plus_one_word_per_tile_and_leaf(n_leaves, n, tiles):
+    assert scan.scratch_words(n_leaves, n) == scan.HEADER_WORDS + n_leaves * tiles
+
+
+def test_scratch_is_zeroed_kept_and_grown(monkeypatch):
+    monkeypatch.setattr(scan, "SCRATCH", {})
+    cpu = torch.device("cpu")
+    small = scan.scratch_for(cpu, 0, 111, scan.scratch_words(3, 1 << 20))
+    assert small.dtype == torch.int64 and small.numel() == scan.MIN_SCRATCH_WORDS
+    assert int(small.abs().sum()) == 0
+    small[:] = 7  # what calls leave behind
+    # the next call, and a smaller one, get the same words, untouched
+    assert scan.scratch_for(cpu, 0, 111, scan.scratch_words(3, 1 << 20)) is small
+    assert scan.scratch_for(cpu, 0, 111, scan.scratch_words(1, 1)) is small
+    assert int(small.min()) == 7
+    # a call that needs more gets a new zeroed scratch, a power of two long
+    need = scan.scratch_words(4, 1 << 26)
+    big = scan.scratch_for(cpu, 0, 111, need)
+    assert big is not small and big.numel() >= need
+    assert big.numel() & (big.numel() - 1) == 0 and int(big.abs().sum()) == 0
+    assert scan.scratch_for(cpu, 0, 111, scan.scratch_words(1, 1)) is big
+    assert len(scan.SCRATCH) == 1
+
+
+def test_scratch_is_keyed_by_device_and_stream(monkeypatch):
+    monkeypatch.setattr(scan, "SCRATCH", {})
+    cpu = torch.device("cpu")
+    words = [scan.scratch_for(cpu, d, s, 10) for d, s in ((0, 111), (0, 222), (1, 111))]
+    assert len({w.data_ptr() for w in words}) == 3
+    assert set(scan.SCRATCH) == {(0, 111), (0, 222), (1, 111)}
+    assert scan.scratch_for(cpu, 0, 222, 10) is words[1]
+
+
+def test_scratch_status_words_are_cleared_before_the_epoch_comes_round(monkeypatch):
+    monkeypatch.setattr(scan, "SCRATCH", {})
+    monkeypatch.setattr(scan, "CLEAR_EVERY", 3)
+    cpu = torch.device("cpu")
+    words = scan.scratch_for(cpu, 0, 5, 10)
+    words[:] = 9
+    for _ in range(2):  # calls 2 and 3: nothing is cleared
+        assert scan.scratch_for(cpu, 0, 5, 10) is words
+    assert int(words.min()) == 9
+    # call 4 would meet status words of the epoch it is about to reuse
+    assert scan.scratch_for(cpu, 0, 5, 10) is words
+    assert words[: scan.HEADER_WORDS].tolist() == [9] * scan.HEADER_WORDS
+    assert int(words[scan.HEADER_WORDS:].abs().sum()) == 0
+    assert scan.SCRATCH[(0, 5)].calls == 1
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 127, 4097, 1 << 15])
+def test_output_rows_start_on_16_byte_boundaries(n):
+    rows = scan.empty_rows(3, n, torch.device("cpu"))
+    assert len(rows) == 3
+    for r in rows:
+        assert r.shape == (n,) and r.dtype == torch.int32 and r.is_contiguous()
+        assert r.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_leaves_at_an_odd_offset_are_taken(reverse):
+    """A view that is not 16-byte aligned is scanned like any other (the
+    kernel falls back to 4-byte loads; the plain version does not care)."""
+    base = _leaves(1001, 11)
+    views = [torch.from_numpy(x)[1:] for x in base]
+    assert any(v.data_ptr() % 16 for v in views)
+    kinds = ["max", "last", "add"]
+    got = scan.scan_leaves(views, kinds, reverse=reverse)
+    want = _associative([x[1:] for x in base], kinds, reverse)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_tuning_script_rewrites_the_shipped_source(monkeypatch):
+    """``scripts/tune_scan.py`` builds its variants by replacing text of
+    ``csrc/scan.cu``: every replacement still finds its text, and the script
+    raises without a card."""
+    from jtokkit_tpu_torch.scripts import tune_scan
+
+    with open(scan.LIBRARY.source) as f:
+        base = f.read()
+    for spec in tune_scan.DEFAULT:
+        parts = spec.split(",")
+        text = tune_scan.variant_source(base, int(parts[0]), int(parts[1]), parts[2], parts[3:])
+        assert f"kThreads = {parts[0]};" in text and f"kItems = {parts[1]};" in text
+        assert ("ld.acquire.gpu" in text) == (parts[2] == "acqrel")
+        assert ("look_back<K>(status" in text) == ("nolook" not in parts)
+    assert tune_scan.variant_source(base, 256, 32, "relaxed") == base
+    with pytest.raises(ValueError):
+        tune_scan.variant_source(base, 256, 32, "seq_cst")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune_scan.main(["256,32,relaxed"])

@@ -71,6 +71,118 @@ def test_kernel_matches_plain_at_the_decode_shapes():
     assert scan.KERNEL_LAUNCHES - launches == len(shapes)
 
 
+def _same(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_repeated_calls_on_one_scratch():
+    """The scratch is persistent: a call must not see the status words of
+    the one before, whether that had as many tiles, more or fewer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an H100")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    cases = []
+    for kinds, n, reverse in ((("max", "max", "add"), 1 << 20, False),
+                              (("last",) * 4, (1 << 22) + 5, True),
+                              (("add",), 5000, False)):
+        leaves = _leaves(kinds, n, gen)
+        cases.append((leaves, kinds, reverse,
+                      scan.scan_leaves_plain(leaves, kinds, reverse=reverse)))
+    first = cases[0]
+    scan.scan_leaves(first[0], first[1])
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    words = scan.SCRATCH[key].words
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    for _ in range(1000):  # back to back, no synchronise
+        got = scan.scan_leaves(first[0], first[1])
+        ok &= torch.stack([(g == w).all() for g, w in zip(got, first[3])]).all()
+    assert bool(ok)
+    for leaves, kinds, reverse, want in cases[1:] + cases:
+        assert _same(scan.scan_leaves(leaves, kinds, reverse=reverse), want)
+    assert scan.SCRATCH[key].words is words  # never allocated anew
+
+
+@pytest.mark.gpu
+def test_two_streams_at_once():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an H100")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cases = []
+    for kinds, n, reverse in ((("max", "last", "add"), (1 << 22) + 3, False),
+                              (("last", "add"), (1 << 21) + 1, True)):
+        leaves = _leaves(kinds, n, gen)
+        cases.append((leaves, kinds, reverse,
+                      scan.scan_leaves_plain(leaves, kinds, reverse=reverse)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    results = []
+    for _ in range(20):
+        for st, (leaves, kinds, reverse, want) in zip(streams, cases):
+            with torch.cuda.stream(st):
+                results.append((scan.scan_leaves(leaves, kinds, reverse=reverse), want))
+    torch.cuda.synchronize()
+    assert all(_same(got, want) for got, want in results)
+    dev = torch.cuda.current_device()
+    a, b = (scan.SCRATCH[(dev, st.cuda_stream)].words for st in streams)
+    assert a.data_ptr() != b.data_ptr()
+
+
+@pytest.mark.gpu
+def test_more_tiles_than_resident_blocks():
+    """n = 2^24 at four leaves is 8,192 tiles for a card that holds a few
+    hundred blocks: the look-back must make progress in both directions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an H100")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    kinds = ("max", "last", "add", "last")
+    leaves = _leaves(kinds, 1 << 24, gen)
+    for reverse in (False, True):
+        got = scan.scan_leaves(leaves, kinds, reverse=reverse)
+        assert _same(got, scan.scan_leaves_plain(leaves, kinds, reverse=reverse))
+    # and leaves that are views at an odd offset (4-byte loads)
+    views = [x[1:] for x in leaves]
+    assert all(v.data_ptr() % 16 for v in views)
+    for reverse in (False, True):
+        got = scan.scan_leaves(views, kinds, reverse=reverse)
+        assert _same(got, scan.scan_leaves_plain(views, kinds, reverse=reverse))
+
+
+@pytest.mark.gpu
+def test_gather_many_lookups_and_large_blocks():
+    """2^24 lookups (every resident block makes several trips), and tables
+    long enough for blocks of 512 and 1,024 threads, by the bulk copy and by
+    plain loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an H100")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seen = set()
+    for size in (2048, 14000, 28000, gather.MAX_BULK_TABLE, gather.MAX_TABLE):
+        table = ints(-1000, 1000, (size,))
+        for n in (1 << 24, 4096 * 128, 4):
+            plan = gather.launch_plan(size, n, sms)
+            seen.add((plan.threads, plan.bulk_bytes > 0))
+            idx = ints(-5, size + 5, (n,))
+            assert torch.equal(gather.take_table(table, idx),
+                               gather.take_table_plain(table, idx)), (size, n)
+        # a table at an odd offset goes by plain loads
+        odd = ints(-1000, 1000, (size + 1,))[1:]
+        idx = ints(0, size, (100_003,))
+        assert torch.equal(gather.take_table(odd, idx), gather.take_table_plain(odd, idx))
+    assert seen == {(256, True), (512, True), (1024, True), (1024, False)}
+
+
 @pytest.mark.gpu
 def test_gather_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
