@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch port (jtokkit_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                 # the run described below
-    python3 chip_smoke.py --profile [DIR] # also a torch.profiler window over
-                                          # one 2 MB english encode (device
-                                          # time by kernel), its table also
-                                          # written to DIR when given
+    python3 chip_smoke.py --profile [DIR] # also torch.profiler windows over
+                                          # 2 MB of english (cold encode,
+                                          # warmed encode, warmed count:
+                                          # device time by kernel), their
+                                          # tables also written to DIR
 
 Phases (each raises on failure, and then no result line is printed):
 
@@ -39,7 +40,20 @@ Phases (each raises on failure, and then no result line is printed):
    a 3000-byte CJK run mixed in; tokens equal the oracle, the chunks take the
    device fallback (3 scan launches per fallback chunk beside Stage A's 5),
    and exactly the pieces over 4096 bytes merge on the host.
-8. One JSON line of kernel numbers, then the last line
+8. Steady state: per corpus, preload_corpus, then count_tokens_corpus cold
+   and warmed (the warmed passes are CUDA graph replays and end in one host
+   read; totals equal the cold pass and the encode phase; the wrapper
+   launches no scan in them, and a torch.profiler window over one replayed
+   pass must show exactly the scan kernel launches the graphs recorded),
+   a plan of three equal chunks whose block pads with an all-zero chunk, then
+   encode_ordinary_batch_arrays over the plan cold and warmed (every array
+   equals the cold pass and the encode phase's tokens, which phase 5 held
+   against the oracle; english takes the 12-bit fetch format, cjk declines
+   it), one warmed dispatch under torch.cuda.set_sync_debug_mode("error"),
+   the packed fetch timed against an int32 fetch, the scan's clear falling
+   due under a replay, and an engine with wide_min_lanes=64 over cjk and the
+   wide-routing documents (tokens equal the oracle's, cold and warmed).
+9. One JSON line of kernel numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or jtokkit_tpu.
@@ -182,6 +196,14 @@ def phase_kernel(scan):
         (("max", "max"), 1 << 18, False),          # masked_rows stitch
         (("max", "max"), 1 << 15, False),          # masked_positions, ascii
         (("max", "max"), 1 << 17, False),          # masked_positions, unicode
+        # the 12-bit fetch's escape side stream (masked_positions at its
+        # capacity, a power of two from 1,024 up)
+        (("max", "max"), 1 << 10, False),
+        (("max", "max"), 1 << 11, False),
+        (("max", "max"), 1 << 12, False),
+        (("max", "max"), 1 << 13, False),
+        (("max", "max"), 1 << 14, False),
+        (("max", "max"), 1 << 16, False),
         # decode: one leaf of the output capacity (8 KB, 1 MB and 16 MB of text)
         (("max",), 1 << 13, False),
         (("max",), 1 << 20, False),
@@ -573,7 +595,349 @@ def phase_long_pieces(enc, card: str):
                       "merge_rounds": rounds}
 
 
+def profiled_kernels(fn):
+    """Run ``fn`` inside a torch.profiler window on the card's activity.
+    Returns (fn's result, launches of the scan kernel, all kernel launches),
+    both counted from the device trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    scans = sum(e.count for e in device if "scan_lookback_kernel" in e.key)
+    return out, scans, sum(e.count for e in device)
+
+
+def phase_steady_state(enc, results, card: str, scan_rows):
+    """The steady-state path over warmed corpus plans, at full width: the
+    corpus-mapped count as graph replays, the cached dispatch with the packed
+    inline fetch, and the wide-bucket engine. ``scan_rows``: the shapes at
+    which the scan kernel was held against its plain version."""
+    import numpy as np
+    import torch
+
+    from jtokkit_tpu_torch.engine.device import CorpusPlan, DeviceEngine, _next_pow2
+    from jtokkit_tpu_torch.ops import merge, scan
+
+    engine = enc.device_engine()
+    dev = engine.device
+    scan.KERNEL_LAUNCHES = 0
+    scan.PLAIN_CALLS = 0
+    scan.REPLAYED_SCANS = 0
+    summary = {}
+    plans = {}
+    profiled_scans = 0  # scan kernel launches seen in the replayed windows
+    stitch_checked = {r["n"] for r in scan_rows
+                      if r["kinds"] == ["max", "max"] and not r["reverse"]}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    def counters():
+        return (engine.host_reads, scan.KERNEL_LAUNCHES, merge.MERGE_ROUNDS,
+                engine.stage_a_runs, scan.REPLAYED_SCANS, engine.graph_replays)
+
+    def delta(before):
+        return tuple(a - b for a, b in zip(counters(), before))
+
+    for name, (docs, tokens, _counts, mb, _e, _c) in results.items():
+        want_total = sum(len(t) for t in tokens)
+        plan = engine.preload_corpus(docs)
+        if not isinstance(plan, CorpusPlan) or plan.chunk_cache is not None:
+            raise AssertionError(f"{name}: preload_corpus gave no fresh CorpusPlan")
+        plans[name] = plan
+
+        # ---- count: cold, the pass that captures, three replays
+        c0 = counters()
+        cold_total, cold_s = timed(lambda: engine.count_tokens_corpus(docs, plan=plan))
+        cold_reads, cold_launches, cold_rounds, cold_runs = delta(c0)[:4]
+        c0 = counters()
+        first_total, first_s = timed(lambda: engine.count_tokens_corpus(None, plan=plan))
+        capture_launches = delta(c0)[1]
+        blocks = plan.mapped_count
+        if not blocks or any(b.graph is None for b in blocks):
+            raise AssertionError(f"{name}: the mapped count holds no captured graphs")
+        if sum(b.n_live for b in blocks) != len(plan):
+            raise AssertionError(f"{name}: the blocks do not cover the plan")
+        n_slots = sum(len(b.bufs) for b in blocks)
+        recorded = sum(b.n_scans for b in blocks)  # counted while capturing
+        rounds = sum(b.n_rounds for b in blocks)
+        if recorded != 5 * n_slots:
+            raise AssertionError(
+                f"{name}: the graphs recorded {recorded} scans for {n_slots} chunk slots")
+        warm_s = []
+        for _ in range(3):
+            c0 = counters()
+            total, s = timed(lambda: engine.count_tokens_corpus(None, plan=plan))
+            reads, launches, eager_rounds, runs, replayed, replays = delta(c0)
+            warm_s.append(s)
+            if total != cold_total:
+                raise AssertionError(f"{name}: warmed count {total} != cold {cold_total}")
+            if reads != 1:
+                raise AssertionError(f"{name}: {reads} host reads in a warmed count pass")
+            if (launches, eager_rounds, runs) != (0, 0, 0):
+                raise AssertionError(
+                    f"{name}: a replayed pass ran eagerly: {launches} scan launches of the "
+                    f"wrapper, {eager_rounds} merge rounds, {runs} Stage A runs")
+            if replays != len(blocks) or replayed != recorded:
+                raise AssertionError(
+                    f"{name}: {replays} replays of {len(blocks)} graphs, {replayed} scans")
+        if not cold_total == first_total == want_total:
+            raise AssertionError(
+                f"{name}: count {cold_total} / {first_total}, encode phase {want_total}")
+        log(f"steady count {name}: {mb:.2f} MB, {len(plan)} chunks in {len(blocks)} "
+            f"graphs ({n_slots} chunk slots); cold {mb / cold_s:.2f} MB/s "
+            f"({cold_reads} host reads, {cold_rounds} merge rounds, {cold_launches} scan "
+            f"launches); capture pass {first_s:.2f} s (capture {plan.capture_seconds:.2f} s, "
+            f"pool {plan.graph_pool_bytes} bytes, {capture_launches} launches); warmed "
+            f"{' / '.join(f'{mb / s:.2f}' for s in warm_s)} MB/s (1 host read, "
+            f"{len(blocks)} replays, no launch by the scan wrapper; the graphs recorded "
+            f"{recorded} scans and {rounds} merge rounds) [{card}]")
+
+        # ---- encode: cold (metas + packed fetch), three warmed (inline fetch)
+        formats0 = dict(engine.fetch_formats)
+        c0 = counters()
+        cold_arrays, enc_cold_s = timed(
+            lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
+        enc_cold_reads = delta(c0)[0]
+        if plan.n_tokens is None or plan.doc_counts is None or plan.esc_counts is None:
+            raise AssertionError(f"{name}: the first encode pass did not fill the plan")
+        if [a.tolist() for a in cold_arrays] != tokens:
+            raise AssertionError(f"{name}: plan encode differs from the encode phase")
+        enc_warm_s = []
+        for _ in range(3):
+            c0 = counters()
+            arrays, s = timed(lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
+            reads, launches, _rounds, runs = delta(c0)[:4]
+            enc_warm_s.append(s)
+            if reads != 1:
+                raise AssertionError(f"{name}: {reads} host reads in a warmed encode pass")
+            if len(arrays) != len(cold_arrays) or not all(
+                    np.array_equal(a, b) for a, b in zip(arrays, cold_arrays)):
+                raise AssertionError(f"{name}: warmed encode differs from the cold pass")
+        p12_keys = [k for k in plan.pinned if k[1] == "p12"]
+        n_p12 = len(p12_keys)
+        if launches != 5 * runs + sum(1 for k in p12_keys if k[3] > 0):
+            raise AssertionError(
+                f"{name}: {launches} scan launches in a warmed encode of {runs} chunks "
+                f"with {n_p12} 12-bit fetches")
+        took = {k: engine.fetch_formats[k] - formats0[k] for k in formats0}
+        if took != {"p12": 3 * n_p12, "lo": len(plan) + 3 * (len(plan) - n_p12)}:
+            raise AssertionError(f"{name}: fetch formats {took} for {n_p12} 12-bit chunks")
+        # the escape side streams' capacities: each is a scan shape of this path
+        ecaps = sorted({k[3] for k in p12_keys if k[3] > 0})
+        if not set(ecaps) <= stitch_checked:
+            raise AssertionError(
+                f"{name}: escape capacities {ecaps} not among the scan shapes held "
+                f"against the plain version {sorted(stitch_checked)}")
+        if name == "english" and n_p12 == 0:
+            raise AssertionError("no english chunk took the 12-bit format")
+        if name == "cjk" and n_p12 == len(plan):
+            raise AssertionError("no cjk chunk declined the 12-bit format")
+
+        # ---- one warmed dispatch with every synchronising call an error
+        reads = engine.host_reads
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = engine._process_chunks_cached(plan, want_tokens=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if engine.host_reads != reads or not all(len(r) == 6 for r in res):
+            raise AssertionError(f"{name}: the cached dispatch read back before its fetch")
+        engine._wait_fetches()
+        for k, r in enumerate(res):
+            got = engine._consume_fetch(r[5], plan.n_tokens[k])
+            if int(r[3]) != plan.n_tokens[k] or not np.array_equal(
+                    got, r[2][: plan.n_tokens[k]].cpu().numpy()):
+                raise AssertionError(f"{name}: chunk {k}'s fetch differs from its tokens")
+
+        # ---- the packed fetch against a plain int32 fetch of the same prefixes
+        toks = [r[2] for r in res]
+        pads = [min(_next_pow2(n, 8192), t.shape[0]) for n, t in zip(plan.n_tokens, toks)]
+        plain = [torch.empty(p, dtype=torch.int32, pin_memory=True) for p in pads]
+
+        def fetch_packed():
+            for k, t in enumerate(toks):
+                engine._start_fetch(plan.pinned, k, t, plan.n_tokens[k], plan.esc_counts[k])
+
+        def fetch_int32():
+            for b, t, p in zip(plain, toks, pads):
+                b.copy_(t[:p], non_blocking=True)
+
+        fetch_ms = {}
+        for label, fn in (("packed", fetch_packed), ("int32", fetch_int32)):
+            fn()
+            fetch_ms[label] = min(timed(fn)[1] for _ in range(3)) * 1e3
+        p12_chunks = {k[0] for k in p12_keys}
+        packed_bytes = sum(
+            b.numel() * b.element_size()
+            for key, bufs in plan.pinned.items()
+            if key[1] == "p12" or key[0] not in p12_chunks  # the format a warmed pass takes
+            for b in bufs if b is not None
+        )
+        log(f"steady encode {name}: cold {mb / enc_cold_s:.2f} MB/s ({enc_cold_reads} host "
+            f"reads); warmed {' / '.join(f'{mb / s:.2f}' for s in enc_warm_s)} MB/s (1 host "
+            f"read, 0 before the fetch, {launches} scan launches a pass); {n_p12} of "
+            f"{len(plan)} chunks in the 12-bit format (escape capacities {ecaps}, each a "
+            f"max,max scan shape checked above); fetch of all chunks packed "
+            f"{fetch_ms['packed']:.2f} ms ({packed_bytes} bytes) against int32 "
+            f"{fetch_ms['int32']:.2f} ms ({4 * sum(pads)} bytes); dispatch passed under "
+            f"set_sync_debug_mode('error') [{card}]")
+        summary[name] = {
+            "mb": mb, "chunks": len(plan), "graphs": len(blocks),
+            "count_cold_mb_s": mb / cold_s, "count_warm_mb_s": [mb / s for s in warm_s],
+            "count_cold_host_reads": cold_reads, "count_cold_rounds": cold_rounds,
+            "capture_s": plan.capture_seconds, "graph_pool_bytes": plan.graph_pool_bytes,
+            "scans_recorded_per_count_pass": recorded,
+            "merge_rounds_recorded_per_count_pass": rounds,
+            "scan_launches_per_warm_encode": launches, "escape_capacities": ecaps,
+            "encode_cold_mb_s": mb / enc_cold_s,
+            "encode_warm_mb_s": [mb / s for s in enc_warm_s],
+            "encode_cold_host_reads": enc_cold_reads, "p12_chunks": n_p12,
+            "fetch_packed_ms": fetch_ms["packed"], "fetch_int32_ms": fetch_ms["int32"],
+        }
+
+    # the scan's clear of its status words, due under a replay
+    entry = scan.SCRATCH[(torch.cuda.current_device(), engine._capture_stream.cuda_stream)]
+    entry.calls = scan.CLEAR_EVERY - 1
+    plan = plans["english"]
+    if engine.count_tokens_corpus(None, plan=plan) != sum(len(t) for t in results["english"][1]):
+        raise AssertionError("count after the scratch's clear under replay differs")
+    if entry.calls >= scan.CLEAR_EVERY // 2:
+        raise AssertionError("the replay did not clear the scan's status words")
+    log("scan: the clear of the status words fell due under a replay; the count is unchanged")
+
+    # ---- a remainder block that pads: three equal chunks count as a block
+    # of four, the fourth an all-zero chunk
+    docs, tokens = results["english"][:2]
+    pad_docs, size = [], 0
+    while size < 5 << 19:  # 2.5 MiB: three 1 MiB chunks
+        pad_docs.append(docs[len(pad_docs)])
+        size += len(pad_docs[-1].encode("utf-8"))
+    want_total = sum(len(t) for t in tokens[: len(pad_docs)])
+    plan = plans["padded"] = engine.preload_corpus(pad_docs)
+    totals = [engine.count_tokens_corpus(None, plan=plan) for _ in range(3)]
+    blocks = plan.mapped_count
+    if not any(len(b.bufs) > b.n_live for b in blocks) or any(b.graph is None for b in blocks):
+        raise AssertionError(
+            f"padded plan: blocks {[(b.n_live, len(b.bufs)) for b in blocks]} of "
+            f"{len(plan)} chunks hold no all-zero chunk")
+    if totals != [want_total] * 3:
+        raise AssertionError(f"padded plan: counts {totals}, the encode phase's tokens "
+                             f"{want_total}")
+    if sum(b.n_scans for b in blocks) != 5 * sum(len(b.bufs) for b in blocks):
+        raise AssertionError("padded plan: not 5 recorded scans a chunk slot")
+    log(f"padded plan: {len(plan)} english chunks in blocks (live, slots) "
+        f"{[(b.n_live, len(b.bufs)) for b in blocks]}; cold, capturing and replayed "
+        f"count equal the encode phase's {want_total} tokens [{card}]")
+    summary["padded"] = {
+        "chunks": len(plan), "blocks": [[b.n_live, len(b.bufs)] for b in blocks],
+    }
+
+    # ---- the wide engine: buckets of 64 lanes and more through merge_exact
+    wide = DeviceEngine.from_oracle(enc.oracle, wide_min_lanes=64)
+    if wide.device.type != "cuda":
+        raise AssertionError(f"wide engine on {wide.device}")
+    wide_docs = [
+        "今日はよい天気です" "東京都港区" * 12, "." * 200 + "!" * 90,
+        "mixed 短い run with spaces and 漢字" * 6,
+        "plain english words stay on the narrow engine.",
+    ]
+    want = [enc.oracle.encode_ordinary(t)[0] for t in wide_docs]
+    small = wide.preload_corpus(wide_docs)
+    for k in range(3):
+        if [a.tolist() for a in wide.encode_ordinary_batch_arrays(None, plan=small)] != want:
+            raise AssertionError(f"wide engine: pass {k} over the four documents differs")
+        if wide.count_tokens_corpus(None, plan=small) != sum(len(w) for w in want):
+            raise AssertionError(f"wide engine: count pass {k} over the four documents")
+    docs, tokens, _counts, mb = results["cjk"][:4]
+    plan = wide.preload_corpus(docs)
+    rounds0 = merge.MERGE_ROUNDS
+    cold_arrays, wide_cold_s = timed(lambda: wide.encode_ordinary_batch_arrays(None, plan=plan))
+    wide_rounds = merge.MERGE_ROUNDS - rounds0
+    if [a.tolist() for a in cold_arrays] != tokens:
+        raise AssertionError("wide engine: cjk tokens differ from the encode phase")
+    wide_warm_s = []
+    for _ in range(3):
+        reads = wide.host_reads
+        arrays, s = timed(lambda: wide.encode_ordinary_batch_arrays(None, plan=plan))
+        wide_warm_s.append(s)
+        if wide.host_reads - reads != 1 or not all(
+                np.array_equal(a, b) for a, b in zip(arrays, cold_arrays)):
+            raise AssertionError("wide engine: warmed cjk encode differs or read back")
+    total, wide_count_s = timed(lambda: wide.count_tokens_corpus(None, plan=plan))
+    if total != sum(len(t) for t in tokens) or plan.mapped_count is not None:
+        raise AssertionError("wide engine: cjk count differs, or the plan was mapped")
+    narrow = summary["cjk"]
+    log(f"wide engine (wide_min_lanes=64) cjk {mb:.2f} MB: encode cold {mb / wide_cold_s:.2f} "
+        f"MB/s ({wide_rounds} merge rounds), warmed "
+        f"{' / '.join(f'{mb / s:.2f}' for s in wide_warm_s)} MB/s, warmed count (staged) "
+        f"{mb / wide_count_s:.2f} MB/s; narrow: encode cold {narrow['encode_cold_mb_s']:.2f}, "
+        f"warmed {' / '.join(f'{x:.2f}' for x in narrow['encode_warm_mb_s'])} MB/s "
+        f"({narrow['count_cold_rounds']} merge rounds); tokens equal the oracle's on the "
+        f"four wide-routing documents and the encode phase's on cjk [{card}]")
+    summary["cjk_wide"] = {
+        "encode_cold_mb_s": mb / wide_cold_s, "encode_warm_mb_s": [mb / s for s in wide_warm_s],
+        "count_warm_mb_s": mb / wide_count_s, "merge_rounds": wide_rounds,
+    }
+    launches, plain_calls = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
+    replayed = scan.REPLAYED_SCANS
+    if plain_calls != 0 or launches <= 0 or replayed <= 0:
+        raise AssertionError(f"steady state: {launches} scan launches, {replayed} replayed "
+                             f"scans, {plain_calls} plain calls")
+
+    # the wide merge's column scans (torch.cummax / cumsum along dim 0) at a
+    # 512-lane bucket of 4,096 pieces
+    from jtokkit_tpu_torch.ops import colscan
+    from jtokkit_tpu_torch.scripts.profile_gather import event_ms
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    x = torch.randint(-1, 1000, (512, 4096), generator=gen, device="cuda", dtype=torch.int32)
+    col_ms = {k: event_ms(lambda k=k: colscan.col_scan([x], [k]), 50)
+              for k in ("last", "max", "add")}
+    summary["colscan_512x4096_ms"] = col_ms
+    log("col_scan [512, 4096] int32 along dim 0: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in col_ms.items())
+        + f" (bound {2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms) [{card}]")
+    # what a replayed pass really launches, from the device trace: one pass
+    # per plan, after every timed pass (no rate is taken once a tracer has
+    # been attached to the process)
+    want_totals = {name: sum(len(t) for t in results[name][1]) for name in results}
+    want_totals["padded"] = want_total
+    for name, plan in plans.items():
+        recorded = sum(b.n_scans for b in plan.mapped_count)
+        total, seen, pass_kernels = profiled_kernels(
+            lambda: engine.count_tokens_corpus(None, plan=plan))
+        if total != want_totals[name] or seen != recorded:
+            raise AssertionError(
+                f"{name}: the device trace of a replayed pass shows {seen} scan kernel "
+                f"launches, the graphs recorded {recorded}; total {total}")
+        profiled_scans += seen
+        summary[name]["scan_kernels_traced_per_count_pass"] = seen
+        summary[name]["kernels_traced_per_count_pass"] = pass_kernels
+        log(f"replayed count {name}: the device trace of one pass shows {seen} scan kernel "
+            f"launches = the {recorded} its graphs recorded, {pass_kernels} kernels in all")
+    replayed = scan.REPLAYED_SCANS
+    log(f"steady state: {launches} scan kernel launches by the wrapper (cold passes, "
+        f"warm-ups before capture, warmed encodes), {replayed} more scans inside graph "
+        f"replays by the graphs' recordings, of which {profiled_scans} were counted in "
+        f"device traces of one pass per plan; 0 plain scan calls")
+    return launches, {"recorded": replayed, "profiled": profiled_scans}, summary
+
+
 def phase_profile(card: str, out_dir: str):
+    """Profiler windows over 2 MB of english: the cold encode, a warmed
+    encode over a plan (cached dispatch, packed inline fetch) and a warmed
+    count (graph replays)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -581,32 +945,49 @@ def phase_profile(card: str, out_dir: str):
     from jtokkit_tpu_torch.utils import corpus
 
     enc = Encodings.new_lazy_encoding_registry().get_encoding(EncodingType.CL100K_BASE)
+    engine = enc.device_engine()
     docs = corpus.generate(2, seed=1, flavor="english")
     enc.encode_ordinary_batch(docs)
+    plan = engine.preload_corpus(docs)
+    for _ in range(2):  # cold pass, then the pass that captures or caches
+        engine.count_tokens_corpus(None, plan=plan)
+        engine.encode_ordinary_batch_arrays(None, plan=plan)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.time()
-        enc.encode_ordinary_batch(docs)
-        torch.cuda.synchronize()
-        wall = time.time() - t
-    events = prof.key_averages()
-    table = events.table(sort_by="self_cuda_time_total", row_limit=60)
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "profile_english_2mb.txt"), "w") as f:
-            f.write(f"{card}\nwall {wall:.4f} s\n{table}\n")
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernel_us = sum(e.self_device_time_total for e in device)
-    scan_us = sum(
-        e.self_device_time_total for e in device
-        if "at::native" not in e.key
-        and "scan_lookback_kernel" in e.key
-    )
-    log(f"profile (2 MB english encode): wall {wall * 1e3:.1f} ms, device "
-        f"kernels {kernel_us / 1e3:.1f} ms ({kernel_us / 1e6 / wall:.1%} busy), "
-        f"scan kernel {scan_us / 1e3:.3f} ms, "
-        f"{sum(e.count for e in device)} kernel launches")
-    log(table)
+    blocks = plan.mapped_count
+    log(f"profile plan: {len(plan)} chunks in {len(blocks)} graphs, "
+        f"{sum(len(b.bufs) for b in blocks)} chunk slots, "
+        f"{sum(b.n_scans for b in blocks)} scans recorded")
+
+    def window(label, fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t
+        events = prof.key_averages()
+        table = events.table(sort_by="self_cuda_time_total", row_limit=60)
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernel_us = sum(e.self_device_time_total for e in device)
+        scan_us = sum(
+            e.self_device_time_total for e in device
+            if "at::native" not in e.key
+            and "scan_lookback_kernel" in e.key
+        )
+        line = (f"profile ({label}, 2 MB english): wall {wall * 1e3:.1f} ms, device "
+                f"kernels {kernel_us / 1e3:.1f} ms ({kernel_us / 1e6 / wall:.1%} busy), "
+                f"scan kernel {scan_us / 1e3:.3f} ms, "
+                f"{sum(e.count for e in device)} kernel launches [{card}]")
+        log(line)
+        if out_dir:  # the table goes to the file, else to the log
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f"profile_english_2mb_{label}.txt"), "w") as f:
+                f.write(f"{line}\n{table}\n")
+        else:
+            log(table)
+
+    window("cold_encode", lambda: enc.encode_ordinary_batch(docs))
+    window("warmed_encode", lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
+    window("warmed_count", lambda: engine.count_tokens_corpus(None, plan=plan))
 
 
 def main() -> int:
@@ -644,6 +1025,8 @@ def main() -> int:
     enc, launches, results = phase_main_path(card)
     decode_launches, decode_rates = phase_decode(enc, results, card)
     long_launches, long_row = phase_long_pieces(enc, card)
+    steady_launches, steady_replayed, steady_row = phase_steady_state(
+        enc, results, card, rows)
     if args.profile is not None:
         phase_profile(card, args.profile)
 
@@ -653,9 +1036,15 @@ def main() -> int:
         "route": "cuda",
         "source": "jtokkit_tpu_torch/csrc/scan.cu",
         "replaces": REPLACES_SCAN,
-        "launches": launches + decode_launches + long_launches,
+        "launches": launches + decode_launches + long_launches + steady_launches,
         "launches_by_path": {"encode_count": launches, "decode": decode_launches,
-                             "long_pieces": long_launches},
+                             "long_pieces": long_launches,
+                             "steady_state": steady_launches},
+        # scans inside CUDA graph replays pass through no wrapper and are in
+        # no launch count above: "recorded" sums what the replayed graphs
+        # hold, "profiled" is the scan kernel launches counted in the device
+        # traces of one replayed pass per plan (equal to that pass's recording)
+        "replayed_in_graphs": steady_replayed,
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -683,7 +1072,8 @@ def main() -> int:
     summary = {name: {"mb": r[3], "encode_mb_s": r[3] / r[4],
                       "count_mb_s": r[3] / r[5], "decode_mb_s": decode_rates[name]}
                for name, r in results.items()}
-    log(json.dumps({"main_path": summary, "long_pieces": long_row, "card": card,
+    log(json.dumps({"main_path": summary, "long_pieces": long_row,
+                    "steady_state": steady_row, "card": card,
                     "seconds": time.time() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

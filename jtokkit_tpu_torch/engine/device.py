@@ -1,9 +1,10 @@
-"""Device engine: the staged batch encode pipeline and batch decode on a
-CUDA card.
+"""Device engine: the staged batch encode pipeline, its steady state over a
+warmed corpus plan, and batch decode on a CUDA card.
 
-Counterpart of ``jtokkit_tpu/engine/device.py`` (the staged path, its
-long-piece fallback and the decode methods). Per batch (documents -> token
-ids):
+Counterpart of ``jtokkit_tpu/engine/device.py`` (the staged path, the warmed
+``CorpusPlan`` passes with the packed token fetch and the corpus-mapped
+count, the wide-bucket routing, the long-piece fallback and the decode
+methods). Per batch (documents -> token ids):
 
 1. Documents are packed into flat byte chunks (``chunk_bytes``, 1 MiB by
    default) with one separator byte between documents; validity is derived
@@ -24,7 +25,24 @@ ids):
    covering the bucket's count.
 5. Stage C: counts, offsets, token scatters, per-document counts.
 6. Host sync 2: ONE fetch of every chunk's token count and document counts,
-   then one fetch of all chunks' live token prefixes.
+   then every chunk's live token prefix, packed to 2 bytes a token (plus a
+   1-bit plane where ids need a 17th bit), copied into pinned host memory
+   without blocking, and ONE wait before the first is consumed.
+
+Steady state (``plan = preload_corpus(texts)``, then the batch methods with
+``plan=plan``): the first pass over a plan is the cold pass above and leaves
+its routing, bucket capacities and merge round counts in the plan
+(``chunk_cache``); the first encode pass adds the token, document and escape
+counts. Later passes dispatch every chunk's stages back to back from the
+cache with no host read between the first launch and the fetch
+(:meth:`DeviceEngine._process_chunks_cached`); the token copies start inside
+the dispatch loop, in the 12-bit format where it is smaller.
+``count_tokens_corpus`` over a warmed plan runs the corpus-mapped count:
+blocks of up to 8 chunks, each ONE CUDA graph captured once per plan and
+replayed per pass (the same body runs eagerly on a CPU device), and one
+scalar fetch. All cached values derive from the plan's immutable buffers, so
+reuse is exact; tokens are computed from the bytes on every pass.
+``host_reads`` counts every fetch of device data.
 
 Batch decode (token ids -> bytes) concatenates the lists, runs
 ``ops/decode.decode_tokens`` once and fetches the bytes once; lists with a
@@ -36,12 +54,17 @@ card they raise.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import boundaries, classify, decode as decode_ops, merge, pipeline, stage4
+from ..ops import (
+    boundaries, classify, decode as decode_ops, merge, merge_exact, pipeline,
+    scan, stage4,
+)
+from ..ops.classify import take_clip
 from ..vocab import tables as vtables
 from ..vocab.loader import asset_path
 from .oracle import OracleEngine, byte_pair_merge
@@ -89,6 +112,47 @@ def _quantize(n: int, sizes) -> int:
     return _next_pow2(n)
 
 
+class CorpusPlan(list):
+    """Chunk plan (list of chunk entries) + steady-state dispatch cache.
+
+    ``chunk_cache`` (set by the first full pass) holds per-chunk routing,
+    bucket capacities and merge round counts, so later passes skip the
+    Stage A metadata fetch and the merge loops' exit tests;
+    ``n_tokens``/``doc_counts`` (set by the first *encode* pass) let later
+    encode passes skip the small-meta fetch as well: steady state then has no
+    host read before the token fetch. Every cached value derives from the
+    plan's immutable buffers, so reuse is exact.
+    """
+
+    chunk_cache = None   # list[dict] per chunk: kind/variant/divs/caps/rounds
+    mapped_count = None  # list[CountBlock] of the corpus-mapped count
+    n_tokens = None      # list[int] per ok-chunk live token count
+    doc_counts = None    # list[np.ndarray] per ok-chunk per-doc counts
+    esc_counts = None    # list[int] per ok-chunk count of ids >= 4094 (the
+    #                      12-bit packed-fetch decision)
+    capture_seconds = 0.0   # spent capturing mapped_count's graphs
+    graph_pool_bytes = 0    # device memory the graphs' shared pool reserved
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        # pinned host buffers of the token fetch, made once per chunk and
+        # format: (ok-chunk index, format, pad[, ecap]) -> list of tensors
+        self.pinned = {}
+
+
+class CountBlock:
+    """Up to 8 chunks of one shape counted as one unit: on CUDA one captured
+    graph whose replay leaves the block's token total in ``out``."""
+
+    def __init__(self, variant, divs, sig, bufs, des, n_live):
+        self.variant, self.divs, self.sig = variant, divs, sig
+        self.bufs, self.des, self.n_live = bufs, des, n_live
+        self.graph = None
+        self.out = None
+        self.n_scans = 0    # scan calls recorded in the graph
+        self.n_rounds = 0   # merge rounds recorded in the graph
+
+
 class DeviceEngine:
     """Batch encode engine for one encoding (built-in patterns only)."""
 
@@ -104,7 +168,8 @@ class DeviceEngine:
 
     def __init__(self, name: str, pattern: str, packed: vtables.PackedVocabulary,
                  oracle: OracleEngine, *, device=None,
-                 chunk_bytes: int = CHUNK_BYTES):
+                 chunk_bytes: int = CHUNK_BYTES,
+                 wide_min_lanes: int = 1 << 30):
         self.name = name
         self.pattern = pattern
         self.packed = packed
@@ -120,16 +185,40 @@ class DeviceEngine:
         self.fallback_chunks = 0
         self.host_pieces = 0
         self.stage_a_runs = 0
+        # fetches of device data by the host: every .cpu() / .item() of the
+        # engine's paths (the cold merge loops' exit tests included) and the
+        # one wait on a pass's token copies
+        self.host_reads = 0
+        # merge-engine crossover: buckets with lanes >= wide_min_lanes run
+        # the wide-bucket hybrid (ops/merge_exact); off by default
+        self.wide_min_lanes = int(wide_min_lanes)
+        # ids over 16 bits (cl100k) ship a 1-bit plane beside the low halves
+        self._fetch_wide = packed.n_tokens > 0xFFFF
+        self._capture_stream = None  # made at the first graph capture
+        # replays of the mapped count's graphs; the Stage A runs, scans and
+        # merge rounds inside a replay pass through no Python and are in no
+        # counter (a block's n_scans and n_rounds say what it recorded)
+        self.graph_replays = 0
+        # token fetches started, by format ("p12": the 12-bit plane, "lo":
+        # 16-bit low halves and the bit plane)
+        self.fetch_formats = {"p12": 0, "lo": 0}
 
     @classmethod
     def from_oracle(cls, oracle: OracleEngine, *, device=None,
-                    chunk_bytes: int = CHUNK_BYTES) -> "DeviceEngine":
+                    chunk_bytes: int = CHUNK_BYTES,
+                    wide_min_lanes: int = 1 << 30) -> "DeviceEngine":
         device = resolve_device(device)
         packed = vtables.load_packed(
             oracle.name, oracle.ranks, _maybe_asset_path(oracle.name)
         )
         return cls(oracle.name, oracle.pattern, packed, oracle,
-                   device=device, chunk_bytes=chunk_bytes)
+                   device=device, chunk_bytes=chunk_bytes,
+                   wide_min_lanes=wide_min_lanes)
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """Fetch a device tensor to the host (one host read)."""
+        self.host_reads += 1
+        return t.cpu().numpy()
 
     # ------------------------------------------------------------------
     # chunk planning (host, numpy)
@@ -213,18 +302,22 @@ class DeviceEngine:
         max_cap = max(n_chunk // self._BUCKET_MAX_DIV[lanes], 8)
         return min(_next_pow2(count, self._CAP_FLOOR), _next_pow2(max_cap))
 
-    def preload_corpus(self, texts: Sequence[Optional[str]]):
+    def preload_corpus(self, texts: Sequence[Optional[str]]) -> CorpusPlan:
         """Chunk-plan a corpus and copy its buffers to the device once.
 
-        Returns a list of (buf, doc_ends, parts, ascii_only, buf_dev,
-        doc_ends_dev) that the batch methods accept as ``plan``.
+        The returned plan (a list of (buf, doc_ends, parts, ascii_only,
+        buf_dev, doc_ends_dev)) can be passed to the batch methods as
+        ``plan`` again and again: passes then pay no host-to-device copy,
+        and after the first full pass the plan also carries the dispatch
+        metadata (see :class:`CorpusPlan`), so later passes read nothing
+        back before their results.
         """
-        return [
+        return CorpusPlan(
             (buf, doc_ends, parts, ascii_only,
              torch.from_numpy(buf).to(self.device),
              torch.from_numpy(doc_ends).to(self.device))
             for buf, doc_ends, parts, ascii_only in self._plan_chunks(texts)
-        ]
+        )
 
     def _stage_a(self, variant: str, divs, buf_dev, doc_ends_dev):
         self.stage_a_runs += 1
@@ -234,9 +327,113 @@ class DeviceEngine:
             t.word_mask, variant=variant, piece_div=divs[0], miss_div=divs[1],
         )
 
+    def _merge_bucket(self, buf_dev, t, b: int, lanes: int, cap: int, count_b,
+                      rounds=None):
+        """Stage B for bucket ``b`` of piece table ``t``: the wide hybrid for
+        ``lanes >= wide_min_lanes``, else the sequential merge.
+
+        ``rounds=None`` is the cold form (its exit tests are host reads,
+        counted in ``ops/merge`` where they are read); else what a cold call
+        returned last. Returns (cols, [(ids, active) per phase], rounds run:
+        an int, or a tuple per phase when wide).
+        """
+        T = self.tables
+        tests = merge.EXIT_TESTS
+        if lanes >= self.wide_min_lanes:
+            cols, outs, ran = merge_exact.merge_bucket_exact(
+                buf_dev, t.starts, t.lens, t.miss_sorted, t.group_start[b],
+                count_b, T.byte_to_id, T.byte_pair_seed, T.pair_rows_cat,
+                T.table_mask, lanes=lanes, cap=cap, rounds=rounds,
+            )
+        else:
+            cols, ids, active, ran = pipeline.merge_bucket_v3(
+                buf_dev, t.starts, t.lens, t.miss_sorted, t.group_start[b],
+                count_b, T.byte_to_id, T.byte_pair_id, T.pair_rows_cat,
+                T.table_mask, lanes=lanes, cap=cap, rounds=rounds,
+            )
+            outs = [(ids, active)]
+        self.host_reads += merge.EXIT_TESTS - tests
+        return cols, outs, ran
+
+    def _stages_b_c(self, buf_dev, de_dev, t, caps, rounds, want_tokens: bool,
+                    want_doc_counts: bool):
+        """Stage B over the buckets of ``caps`` and Stage C for one chunk.
+
+        Returns (tokens or None, n_tokens, doc_counts or None, rounds run
+        per bucket), all but the last on the device.
+        """
+        counts = pipeline.counts_init(t.hit, t.n_pieces)
+        bucket_outs, ran = [], []
+        for k, (b, lanes, cap, cnt) in enumerate(caps):
+            cols, outs, r = self._merge_bucket(
+                buf_dev, t, b, lanes, cap, cnt,
+                None if rounds is None else rounds[k],
+            )
+            ran.append(r)
+            for _ids_k, act_k in outs:
+                counts = pipeline.counts_add_bucket(counts, cols, act_k)
+            bucket_outs.append((cols, outs))
+        offsets, n_tokens = pipeline.make_offsets(counts, t.n_pieces)
+        tokens = None
+        if want_tokens:
+            tokens = pipeline.scatter_hits(
+                buf_dev.shape[0], t.hit, offsets, t.n_pieces
+            )
+            for cols, outs in bucket_outs:
+                for ids_k, act_k in outs:
+                    tokens = pipeline.scatter_bucket(
+                        tokens, ids_k, act_k, cols, offsets
+                    )
+        doc_counts = None
+        if want_doc_counts:
+            doc_counts = stage4.doc_token_counts_v4(
+                offsets, n_tokens, t.starts, de_dev, t.n_pieces
+            )
+        return tokens, n_tokens, doc_counts, ran
+
+    def _process_chunks_cached(self, plan: CorpusPlan, want_tokens: bool):
+        """Steady-state pipeline: every chunk's stages dispatched back to
+        back from the plan's cached routing, capacities and round counts,
+        with no host read at all.
+
+        With cached token counts the pack and the device-to-host copy of each
+        chunk's tokens are enqueued INSIDE this loop, right after the chunk's
+        scatters, so the copies run beside the later chunks' kernels. ok
+        results then carry a sixth entry, the fetch in flight.
+        """
+        results = []
+        inline_fetch = want_tokens and plan.n_tokens is not None
+        oki = 0
+        for (buf, doc_ends, parts, _ascii, buf_dev, de_dev), c in zip(
+            plan, plan.chunk_cache
+        ):
+            if c["kind"] != "ok":
+                self.fallback_chunks += 1
+                results.append((c["kind"], buf, doc_ends, parts))
+                continue
+            table, _meta = self._stage_a(c["variant"], c["divs"], buf_dev, de_dev)
+            # per-doc counts are plan-stable: dispatched only until the
+            # first encode pass has fetched and cached them
+            tokens, n_tokens, doc_counts, _ran = self._stages_b_c(
+                buf_dev, de_dev, table, c["caps"], c["rounds"], want_tokens,
+                want_tokens and plan.doc_counts is None,
+            )
+            res = ("ok", parts, tokens, n_tokens, doc_counts)
+            if inline_fetch:
+                ec = plan.esc_counts[oki] if plan.esc_counts is not None else None
+                res += (self._start_fetch(
+                    plan.pinned, oki, tokens, plan.n_tokens[oki], ec
+                ),)
+            results.append(res)
+            oki += 1
+        return results
+
     def _process_chunks(self, texts, want_tokens: bool, plan=None):
         """Run the staged pipeline over all chunks with one batched host
-        sync for the Stage A metadata (plus one on a capacity retry).
+        read for the Stage A metadata (plus one on a capacity retry, and the
+        merge loops' exit tests). With a warmed plan (``plan.chunk_cache``
+        set by an earlier pass) nothing is read: see
+        :meth:`_process_chunks_cached`.
 
         Returns one result per chunk: ("ok", parts, tokens, n_tokens,
         doc_counts) with device tensors, or ("fallback", buf, doc_ends,
@@ -244,18 +441,20 @@ class DeviceEngine:
         """
         if plan is None:
             plan = self.preload_corpus(texts)
+        if getattr(plan, "chunk_cache", None) is not None:
+            return self._process_chunks_cached(plan, want_tokens)
         staged = []
         for buf, doc_ends, parts, ascii_only, buf_dev, doc_ends_dev in plan:
             variant = "ascii" if ascii_only else "unicode"
             divs = _DIVS_PRIMARY if ascii_only else _DIVS_PRIMARY_UNICODE
             table, meta = self._stage_a(variant, divs, buf_dev, doc_ends_dev)
             staged.append([buf, doc_ends, parts, variant, table, meta,
-                           buf_dev, doc_ends_dev])
+                           buf_dev, doc_ends_dev, divs])
         if not staged:
             return []
 
         # sync round 1: ONE fetch of all chunk metas
-        metas = torch.stack([s[5] for s in staged]).cpu().numpy()
+        metas = self._read(torch.stack([s[5] for s in staged]))
 
         # capacity-overflow retries (the roomy variant suffices for any
         # input). A truncated piece table also reads as PIECE_LEN (its last
@@ -265,50 +464,178 @@ class DeviceEngine:
         for i, s in enumerate(staged):
             if int(metas[i][0]) & stage4.OVERFLOW_CAPACITY:
                 s[4], s[5] = self._stage_a(s[3], _DIVS_ROOMY, s[6], s[7])
+                s[8] = _DIVS_ROOMY
                 retried.append(i)
         if retried:
-            re_metas = torch.stack([staged[i][5] for i in retried]).cpu().numpy()
+            re_metas = self._read(torch.stack([staged[i][5] for i in retried]))
             for k, i in enumerate(retried):
                 metas[i] = re_metas[k]
 
-        t_ = self.tables
         results = []
-        for i, (buf, doc_ends, parts, _variant, t, _meta, buf_dev,
-                de_dev) in enumerate(staged):
+        cache = []
+        for i, (buf, doc_ends, parts, variant, t, _meta, buf_dev,
+                de_dev, divs) in enumerate(staged):
             overflow = int(metas[i][0])
             if overflow & (stage4.OVERFLOW_PIECE_LEN | stage4.OVERFLOW_CAPACITY):
                 self.fallback_chunks += 1
                 results.append(("fallback", buf, doc_ends, parts))
+                cache.append({"kind": "fallback"})
                 continue
             bucket_counts = metas[i][2:]
-            N = len(buf)
-            counts = pipeline.counts_init(t.hit, t.n_pieces)
-            bucket_outs = []
-            for b, lanes in enumerate(stage4.BUCKET_WIDTHS):
-                cnt = int(bucket_counts[b])
-                if cnt == 0:
-                    continue
-                cap = self._bucket_cap(N, lanes, cnt)
-                cols, ids, active = pipeline.merge_bucket_v3(
-                    buf_dev, t.starts, t.lens, t.miss_sorted,
-                    t.group_start[b], cnt, t_.byte_to_id, t_.byte_pair_id,
-                    t_.pair_rows_cat, t_.table_mask, lanes=lanes, cap=cap,
-                )
-                counts = pipeline.counts_add_bucket(counts, cols, active)
-                bucket_outs.append((cols, ids, active))
-            offsets, n_tokens = pipeline.make_offsets(counts, t.n_pieces)
-            tokens = None
-            if want_tokens:
-                tokens = pipeline.scatter_hits(N, t.hit, offsets, t.n_pieces)
-                for cols, ids, active in bucket_outs:
-                    tokens = pipeline.scatter_bucket(
-                        tokens, ids, active, cols, offsets
-                    )
-            doc_counts = stage4.doc_token_counts_v4(
-                offsets, n_tokens, t.starts, de_dev, t.n_pieces
+            caps = [
+                (b, lanes, self._bucket_cap(len(buf), lanes, int(bucket_counts[b])),
+                 int(bucket_counts[b]))
+                for b, lanes in enumerate(stage4.BUCKET_WIDTHS)
+                if bucket_counts[b]
+            ]
+            tokens, n_tokens, doc_counts, ran = self._stages_b_c(
+                buf_dev, de_dev, t, caps, None, want_tokens, True
             )
             results.append(("ok", parts, tokens, n_tokens, doc_counts))
+            cache.append({"kind": "ok", "variant": variant, "divs": divs,
+                          "caps": caps, "rounds": ran})
+        if isinstance(plan, CorpusPlan):
+            plan.chunk_cache = cache
         return results
+
+    # ------------------------------------------------------------------
+    # the packed token fetch
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _low_halves(t):
+        """The low 16 bits of each int32 as int16 words (the bit pattern of
+        the reference's uint16): the even halves of the little-endian view,
+        so no narrowing conversion is involved."""
+        return t.contiguous().view(torch.int16)[0::2].contiguous()
+
+    @staticmethod
+    def _bit_plane(t):
+        """Bit 16 of each id, 8 ids a byte, lowest bit first."""
+        bits = ((t >> 16) & 1).reshape(-1, 8)
+        w = torch.arange(8, dtype=torch.int32, device=t.device)
+        return (bits << w[None, :]).sum(dim=1).to(torch.uint8)
+
+    def _slice_tokens(self, tokens, pad: int):
+        """(lo, hi) of the quantized token prefix ``tokens[:pad]``: 2 bytes a
+        token and, where ids need a 17th bit, the 1-bit plane (else None)."""
+        t = tokens[:pad]
+        return self._low_halves(t), (self._bit_plane(t) if self._fetch_wide else None)
+
+    def _pack12(self, tokens, pad: int, ecap: int):
+        """12-bit packed prefix: ids 0..4093 go as their own code, two codes
+        per 3 bytes; code 4094 marks an escape, whose full id rides a side
+        stream of ``ecap`` slots in the (lo, hi) format, in stream order.
+        Most english cl100k ids are below 4094 (low ranks are the frequent
+        tokens), so the plane is 1.5 bytes a token against 2.125.
+
+        Returns (plane uint8[pad * 3 // 2], lo or None, hi or None).
+        """
+        t = tokens[:pad]
+        esc = t >= 4094
+        c = torch.where(esc, 4094, t).reshape(-1, 2)
+        c0, c1 = c[:, 0], c[:, 1]
+        plane = torch.stack(
+            [c0 & 0xFF, (c0 >> 8) | ((c1 & 0xF) << 4), c1 >> 4], dim=1
+        ).to(torch.uint8).reshape(-1)
+        if ecap == 0:
+            return plane, None, None
+        pos = stage4.masked_positions(esc, ecap, pad)
+        vals = take_clip(t, torch.clamp(pos, max=pad - 1))
+        return plane, self._low_halves(vals), (
+            self._bit_plane(vals) if self._fetch_wide else None
+        )
+
+    def _to_host(self, pinned: dict, key, arrays):
+        """Start the copies of device ``arrays`` (None entries pass through)
+        into pinned host buffers kept under ``key``, without blocking; the
+        caller waits once (:meth:`_wait_fetches`) before reading any. CPU
+        tensors are returned as they are."""
+        if self.device.type != "cuda":
+            return list(arrays)
+        bufs = pinned.get(key)
+        if bufs is None:
+            bufs = pinned[key] = [
+                None if a is None
+                else torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                for a in arrays
+            ]
+        for b, a in zip(bufs, arrays):
+            if a is not None:
+                b.copy_(a, non_blocking=True)
+        return bufs
+
+    def _wait_fetches(self) -> None:
+        """The one wait of a pass on its token copies (one host read)."""
+        self.host_reads += 1
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _start_fetch(self, pinned: dict, oki: int, tokens, n_tokens: int, esc):
+        """Pack ok-chunk ``oki``'s live token prefix and start its copy to
+        the host. ``esc`` is the chunk's count of ids >= 4094 where known
+        (a warmed plan), which decides the format.
+
+        Returns (lo, hi) or ("p12", pad, esc, plane, lo, hi), host tensors
+        that hold their data after :meth:`_wait_fetches`.
+        """
+        if not n_tokens:
+            return (None, None)
+        pad = min(_next_pow2(n_tokens, 8192), tokens.shape[0])
+        if esc is not None:
+            ecap = _next_pow2(esc, 1024) if esc else 0
+            # the 12-bit plane pays when its bytes (1.5 pad + 2.125 ecap)
+            # beat the 2-or-2.125 bytes a token of the direct format
+            if ecap * 17 < pad * 4:
+                self.fetch_formats["p12"] += 1
+                return ("p12", pad, esc, *self._to_host(
+                    pinned, (oki, "p12", pad, ecap), self._pack12(tokens, pad, ecap)
+                ))
+        self.fetch_formats["lo"] += 1
+        return tuple(self._to_host(
+            pinned, (oki, "lo", pad), self._slice_tokens(tokens, pad)
+        ))
+
+    @staticmethod
+    def _consume_fetch(fetch, n_tokens: int) -> np.ndarray:
+        """One chunk's token ids from its fetched arrays (host tensors or
+        numpy arrays).
+
+        ``fetch`` is either (lo, hi), 16-bit low halves plus the optional
+        17th-bit plane, or ("p12", pad, esc_count, plane, lo, hi): the
+        12-bit plane (codes 0..4093 direct, 4094 = escape) with the escapes'
+        full ids on the side stream, consumed in stream order.
+        """
+        def host(a):
+            return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+        def ids(lo, hi, n):
+            vals = host(lo).view(np.uint16)[:n].astype(np.int32)
+            if hi is not None:
+                vals |= np.unpackbits(
+                    host(hi), bitorder="little"
+                )[:n].astype(np.int32) << 16
+            return vals
+
+        if isinstance(fetch[0], str):
+            _tag, _pad, ec, plane, lo, hi = fetch
+            b = host(plane).reshape(-1, 3).astype(np.uint16)
+            c0 = b[:, 0] | ((b[:, 1] & 0xF) << 8)
+            c1 = (b[:, 1] >> 4) | (b[:, 2] << 4)
+            tokens = np.stack([c0, c1], axis=1).reshape(-1)[:n_tokens].astype(np.int32)
+            if ec:
+                # the pad region of the tokens buffer is zero (the scatters
+                # write into zeros and drop the rest), so no position past
+                # n_tokens reads as an escape, and masked_positions yields
+                # ascending positions: the side stream's first len(esc_idx)
+                # values are the in-range escapes in order
+                esc_idx = np.flatnonzero(tokens == 4094)
+                tokens[esc_idx] = ids(lo, hi, ec)[: len(esc_idx)]
+            return tokens
+        lo, hi = fetch
+        if lo is None:
+            return np.zeros((0,), np.int32)
+        return ids(lo, hi, n_tokens)
 
     # ------------------------------------------------------------------
     # long-piece fallback: boundaries and bucket merges on the device,
@@ -331,7 +658,7 @@ class DeviceEngine:
             torch.from_numpy(buf).to(self.device), self.tables.class_table,
             torch.from_numpy(valid).to(self.device),
         )
-        mask = boundaries.piece_starts(info, self.pattern).cpu().numpy()
+        mask = self._read(boundaries.piece_starts(info, self.pattern))
         starts = np.flatnonzero(mask[:used])
         if len(starts) == 0:
             return starts.astype(np.int64), starts.astype(np.int64)
@@ -370,13 +697,15 @@ class DeviceEngine:
             mat[: len(sel)] = np.where(lane_mask, rows, 0)
             blens[: len(sel)] = lens[sel]
 
+            tests = merge.EXIT_TESTS
             ids, active = merge.merge_rows(
                 torch.from_numpy(mat).to(self.device),
                 torch.from_numpy(blens).to(self.device),
                 t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask,
             )
-            ids = ids[: len(sel)].cpu().numpy()
-            active = active[: len(sel)].cpu().numpy()
+            self.host_reads += merge.EXIT_TESTS - tests
+            ids = self._read(ids[: len(sel)])
+            active = self._read(active[: len(sel)])
             counts[sel] = active.sum(axis=1)
             piece_tokens.append((sel, ids, active))
 
@@ -436,8 +765,12 @@ class DeviceEngine:
     ) -> List[np.ndarray]:
         """Token ids per document as int32 numpy arrays.
 
-        One fetch of every chunk's (n_tokens, doc_counts), then one fetch of
-        all chunks' live token prefixes, concatenated on the device.
+        Cold pass: ONE fetch of every chunk's (n_tokens, doc_counts), then
+        each chunk's live token prefix is sliced to a quantized length,
+        packed and copied to pinned host memory without blocking, and ONE
+        wait precedes the first consume. Over a warmed :class:`CorpusPlan`
+        the counts are cached and the copies were started inside the
+        dispatch loop, so the wait is the pass's only host read.
         """
         if texts is None and plan is None:
             return []
@@ -446,40 +779,68 @@ class DeviceEngine:
             else 1 + max(p for entry in plan for p in entry[2])
         )
         parts_out: List[List[np.ndarray]] = [[] for _ in range(n_docs)]
+        is_plan = isinstance(plan, CorpusPlan)
+        # as it stood before this pass: a pass that finds the counts cached
+        # has its fetches in flight already
+        cached = is_plan and plan.n_tokens is not None
         results = self._process_chunks(texts, want_tokens=True, plan=plan)
         ok = [r for r in results if r[0] == "ok"]
+        if ok and not cached:
+            # sync round 2a: ONE fetch of every chunk's n_tokens, then every
+            # chunk's doc_counts. Both are plan-stable, so a warmed plan
+            # skips it.
+            small = self._read(self._pack_metas(
+                [r[3] for r in ok], [r[4] for r in ok]
+            ))
+            n_tokens = [int(x) for x in small[: len(ok)]]
+            doc_counts = []
+            pos = len(ok)
+            for r in ok:
+                doc_counts.append(small[pos : pos + len(r[1])])
+                pos += int(r[4].shape[0])
+            if is_plan:
+                plan.n_tokens, plan.doc_counts = n_tokens, doc_counts
+        elif ok:
+            n_tokens, doc_counts = plan.n_tokens, plan.doc_counts
+        # start every chunk's packed copy before consuming any
+        pinned = plan.pinned if is_plan else {}
+        fetches = [
+            r[5] if len(r) > 5
+            else self._start_fetch(pinned, k, r[2], n_tokens[k], None)
+            for k, r in enumerate(ok)
+        ]
         if ok:
-            small = torch.cat(
-                [torch.stack([r[3] for r in ok])] + [r[4] for r in ok]
-            ).cpu().numpy()
-            n_tok = [int(x) for x in small[: len(ok)]]
-            flat = torch.cat(
-                [r[2][:n] for r, n in zip(ok, n_tok)]
-            ).cpu().numpy()
+            self._wait_fetches()
+        # first encode pass over a plan: record per-chunk escape counts (the
+        # 12-bit packed-fetch decision of later passes)
+        new_esc = [] if is_plan and plan.esc_counts is None else None
         oki = 0
-        tok_pos = 0
-        meta_pos = len(ok)
         for res in results:
             if res[0] == "fallback":
                 for doc_idx, toks in self._encode_chunk_fallback(*res[1:]):
                     parts_out[doc_idx].append(toks)
                 continue
-            parts, d_size = res[1], int(res[4].shape[0])
-            n = n_tok[oki]
-            doc_counts = small[meta_pos : meta_pos + len(parts)]
-            tokens = flat[tok_pos : tok_pos + n]
-            oki += 1
-            tok_pos += n
-            meta_pos += d_size
-            splits = np.cumsum(doc_counts)[:-1]
+            parts = res[1]
+            tokens = self._consume_fetch(fetches[oki], n_tokens[oki])
+            if new_esc is not None:
+                new_esc.append(int(np.count_nonzero(tokens >= 4094)))
+            splits = np.cumsum(doc_counts[oki][: len(parts)])[:-1]
             for doc_idx, toks in zip(parts, np.split(tokens, splits)):
                 parts_out[doc_idx].append(toks)
+            oki += 1
+        if new_esc is not None:
+            plan.esc_counts = new_esc
         empty = np.zeros((0,), np.int32)
         return [
             ps[0] if len(ps) == 1
             else (np.concatenate(ps) if ps else empty)
             for ps in parts_out
         ]
+
+    @staticmethod
+    def _pack_metas(ns, dcs):
+        """All chunks' n_tokens, then all their doc_counts, as one tensor."""
+        return torch.cat([torch.stack(ns)] + list(dcs))
 
     def encode_ordinary_batch(
         self, texts: Sequence[Optional[str]]
@@ -495,7 +856,7 @@ class DeviceEngine:
         results = self._process_chunks(texts, want_tokens=False)
         ok = [r for r in results if r[0] == "ok"]
         if ok:
-            small = torch.cat([r[4] for r in ok]).cpu().numpy()
+            small = self._read(torch.cat([r[4] for r in ok]))
         pos = 0
         for res in results:
             if res[0] == "fallback":
@@ -507,6 +868,184 @@ class DeviceEngine:
                 counts[doc_idx] += int(c)
             pos += int(doc_counts_dev.shape[0])
         return counts
+
+    # ------------------------------------------------------------------
+    # corpus count: the mapped count over a warmed plan
+    # ------------------------------------------------------------------
+
+    def _count_body(self, variant, divs, sig, buf, doc_ends):
+        """One chunk's token count (0-d tensor): Stage A, every merge bucket
+        of ``sig`` ((b, lanes, cap, rounds) per bucket) and the offsets, with
+        the bucket counts taken from the device and nothing read back."""
+        table, _meta = self._stage_a(variant, divs, buf, doc_ends)
+        counts = pipeline.counts_init(table.hit, table.n_pieces)
+        for (b, lanes, cap, rounds) in sig:
+            cols, outs, _ran = self._merge_bucket(
+                buf, table, b, lanes, cap, table.bucket_counts[b], rounds
+            )
+            counts = pipeline.counts_add_bucket(counts, cols, outs[0][1])
+        _offsets, n_tokens = pipeline.make_offsets(counts, table.n_pieces)
+        return n_tokens
+
+    def _block_sum(self, blk: CountBlock):
+        return torch.stack([
+            self._count_body(blk.variant, blk.divs, blk.sig, b, d)
+            for b, d in zip(blk.bufs, blk.des)
+        ]).sum()
+
+    def _mapped_count_groups(self, plan: CorpusPlan):
+        """Group a warmed plan's ok-chunks by shape into the blocks of the
+        mapped count, and on CUDA capture each block as one graph.
+
+        Groups are keyed by (variant, divs, flat size, doc slots); a group's
+        signature is the per-bucket MAX of capacity and of merge rounds over
+        its chunks (capacities are quantized to powers of two, so the union
+        normally equals every chunk's own; a larger capacity adds dead
+        columns and more rounds add no-op rounds). Each group is split into
+        blocks of 8 chunks and one remainder padded to a power of two with
+        all-zero chunks, which classify to zero pieces and count zero
+        tokens.
+        """
+        if plan.mapped_count is not None:
+            return plan.mapped_count
+        bykey = {}
+        for entry, c in zip(plan, plan.chunk_cache):
+            if c["kind"] != "ok":
+                continue
+            buf, doc_ends, _parts, _a, buf_dev, de_dev = entry
+            key = (c["variant"], c["divs"], len(buf), doc_ends.shape[0])
+            bykey.setdefault(key, []).append((buf_dev, de_dev, c))
+        blocks = []
+        for (variant, divs, N, D), items in bykey.items():
+            by_bucket = {}
+            for _b, _d, c in items:
+                for (b, lanes, cap, _cnt), r in zip(c["caps"], c["rounds"]):
+                    cap0, r0 = by_bucket.get((b, lanes), (0, 0))
+                    by_bucket[(b, lanes)] = (max(cap0, cap), max(r0, r))
+            sig = tuple(
+                (b, lanes, cap, r)
+                for (b, lanes), (cap, r) in sorted(by_bucket.items())
+            )
+            zero_buf = torch.zeros(N, dtype=torch.uint8, device=self.device)
+            zero_de = torch.zeros(D, dtype=torch.int32, device=self.device)
+            n = len(items)
+            sizes = [8] * (n // 8)
+            if n % 8:
+                sizes.append(_next_pow2(n % 8))
+            pos = 0
+            for C in sizes:
+                sub = items[pos : pos + C]
+                pos += C
+                pad = C - len(sub)
+                blocks.append(CountBlock(
+                    variant, divs, sig,
+                    [b for b, _d, _c in sub] + [zero_buf] * pad,
+                    [d for _b, d, _c in sub] + [zero_de] * pad,
+                    len(sub),
+                ))
+        if self.device.type == "cuda" and blocks:
+            self._capture_blocks(plan, blocks)
+        plan.mapped_count = blocks
+        return blocks
+
+    def _capture_blocks(self, plan: CorpusPlan, blocks) -> None:
+        """Capture every block of a plan as one ``torch.cuda.CUDAGraph``, all
+        into one shared memory pool. The plan's device buffers are the
+        graphs' inputs where they lie (immutable and resident), so a replay
+        copies nothing in. A capture that fails raises.
+
+        Before the captures, one chunk of every shape (signature, flat size
+        and document slots) runs eagerly on the capture stream, with one
+        merge round a bucket: that makes the scan
+        kernel's scratch for that stream at its full size (the scratch must
+        not be made during a capture; it lives in ``scan.SCRATCH`` as long
+        as the process) and loads every kernel the body launches.
+        """
+        dev = self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        stream = self._capture_stream
+        t0 = time.time()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            shapes = {
+                (b.variant, b.divs, b.sig, b.bufs[0].shape[0], b.des[0].shape[0]): b
+                for b in blocks
+            }
+            for blk in shapes.values():
+                once = tuple((b, lanes, cap, min(r, 1)) for b, lanes, cap, r in blk.sig)
+                self._count_body(blk.variant, blk.divs, once, blk.bufs[0], blk.des[0])
+        stream.synchronize()
+        # entering a capture empties the allocator's cache; done here first,
+        # what is reserved from now on is the graphs' pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        pool = torch.cuda.graph_pool_handle()
+        for blk in blocks:
+            scans, rounds = scan.CAPTURED_CALLS, merge.MERGE_ROUNDS
+            runs = self.stage_a_runs
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                blk.out = self._block_sum(blk)
+            blk.graph = graph
+            blk.n_scans = scan.CAPTURED_CALLS - scans
+            blk.n_rounds = merge.MERGE_ROUNDS - rounds
+            # recorded, not run
+            self.stage_a_runs = runs
+            merge.MERGE_ROUNDS = rounds
+        plan.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        plan.capture_seconds = time.time() - t0
+
+    def _run_block(self, blk: CountBlock):
+        """The block's token total (0-d tensor): a graph replay on CUDA, the
+        eager body on a CPU device."""
+        if blk.graph is None:
+            if self.device.type == "cuda":
+                raise RuntimeError("a block of the mapped count has no graph")
+            return self._block_sum(blk)
+        scan.count_replay(self.device, self._capture_stream.cuda_stream, blk.n_scans)
+        blk.graph.replay()
+        self.graph_replays += 1
+        return blk.out
+
+    def _uses_wide(self, plan: CorpusPlan) -> bool:
+        return any(
+            c["kind"] == "ok" and any(
+                lanes >= self.wide_min_lanes for (_b, lanes, _cap, _cnt) in c["caps"]
+            )
+            for c in plan.chunk_cache
+        )
+
+    def count_tokens_corpus(self, texts: Sequence[Optional[str]], plan=None) -> int:
+        """Total token count of a corpus.
+
+        Over a warmed :class:`CorpusPlan` this is the mapped count: one graph
+        replay per block of up to 8 chunks and ONE scalar fetch per pass.
+        Plans with a wide-bucket chunk stay on the staged dispatch (their
+        per-phase state would multiply a block's size, and such corpora are
+        merge-bound anyway); chunks routed to the long-piece fallback keep
+        their path.
+        """
+        if (
+            isinstance(plan, CorpusPlan) and plan.chunk_cache is not None
+            and not self._uses_wide(plan)
+        ):
+            sums = [self._run_block(blk) for blk in self._mapped_count_groups(plan)]
+            results = [
+                ("fallback", e[0], e[1], e[2])
+                for e, c in zip(plan, plan.chunk_cache) if c["kind"] != "ok"
+            ]
+            self.fallback_chunks += len(results)
+        else:
+            results = self._process_chunks(texts, want_tokens=False, plan=plan)
+            sums = [r[3] for r in results if r[0] == "ok"]
+        total = int(self._read(torch.stack(sums).sum())) if sums else 0
+        for res in results:
+            if res[0] == "fallback":
+                total += sum(
+                    len(toks) for _d, toks in self._encode_chunk_fallback(*res[1:])
+                )
+        return total
 
     # ------------------------------------------------------------------
     # batch decode
@@ -586,7 +1125,10 @@ class DeviceEngine:
                 torch.from_numpy(tokens).to(self.device), n,
                 t.token_offsets, t.token_bytes, cap,
             )
-            data = data_dev[:total_bytes].cpu().numpy().tobytes()
+            # the live prefix: the byte count is known on the host and
+            # nothing is compiled per length here, so it is exact, not
+            # quantized
+            data = self._read(data_dev[:total_bytes]).tobytes()
         return self._cut_lists(out, data, byte_ends, splits)
 
     def decode_bytes_batch(self, token_lists) -> List[bytes]:

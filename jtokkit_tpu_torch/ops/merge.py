@@ -1,8 +1,8 @@
 """Device byte-pair merge, vectorized across pieces.
 
 Counterpart of ``jtokkit_tpu/ops/merge.py`` (``pair_lookup_cat``,
-``t3_round``, ``merge_rows_t3``, and the row-major ``merge_rows`` of the
-long-piece fallback). In Stage B pieces are columns of a [W, R] matrix
+``t3_round``, ``rank_from_state``, ``merge_rows_t3``, and the row-major
+``merge_rows`` of the long-piece fallback). In Stage B pieces are columns of a [W, R] matrix
 (W = bucket width, R = pieces) and the sequential min-rank merge of the
 reference runs one step per column per round:
 
@@ -14,8 +14,14 @@ reference runs one step per column per round:
   3. the two affected neighbour ranks are looked up again, both sites and
      both cuckoo probes in one batched row gather.
 
-The loop ends when no column has a mergeable pair. Each round's exit test
-reads one flag back to the host; :data:`MERGE_ROUNDS` counts the rounds.
+The loop ends when no column has a mergeable pair. It has two forms. The
+cold form tests for that after every round and so reads one flag back to the
+host per round. The fixed-count form (``rounds=k``) runs exactly ``k`` rounds
+and reads nothing back: a round with nothing to merge changes nothing
+(:func:`t3_round` masks every update by ``minval < MAX_RANK``), and the
+rounds a bucket needs depend only on its bytes, so a count taken from a cold
+pass over the same bytes is exact. :data:`MERGE_ROUNDS` counts the rounds of
+both forms, :data:`EXIT_TESTS` the flags read back.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .classify import take_clip
+from .colscan import excl_rev
 from .stage4 import _mix
 
 MAX_RANK = 0x7FFFFFFF
@@ -33,6 +40,15 @@ _H2 = (0xC2B2AE3D, 0x27D4EB2F, 0x165667B1)
 # merge rounds run by merge_rows_t3 and merge_rows since the counter was last
 # reset
 MERGE_ROUNDS = 0
+# exit tests of the cold loops: each is one 0-d bool read back to the host,
+# counted where it is read
+EXIT_TESTS = 0
+
+
+def _read_flag(flag) -> bool:
+    global EXIT_TESTS
+    EXIT_TESTS += 1
+    return bool(flag.item())
 
 
 def pair_lookup_cat(u, v, pair_rows_cat, table_mask):
@@ -99,15 +115,48 @@ def t3_round(ids, rank, active, pair_rows_cat, table_mask):
     return new_ids, new_rank, new_active
 
 
+def rank_from_state(ids, active, pair_rows_cat, table_mask):
+    """Pair ranks for a mid-merge [W, R] state: rank[w] = vocabulary rank of
+    (span w, next active span in its column), MAX_RANK when absent. ONE
+    full-matrix batched lookup; used to enter the sequential rounds after a
+    batched round or a compaction."""
+    (nxt_id,) = excl_rev([torch.where(active, ids, -1)], ["last"])
+    found = pair_lookup_cat(ids, nxt_id, pair_rows_cat, table_mask)
+    has = active & (nxt_id >= 0)
+    return torch.where(has & (found >= 0), found, MAX_RANK)
+
+
+def run_rounds(ids, rank, active, pair_rows_cat, table_mask, rounds=None,
+               more=None):
+    """Sequential merge rounds over a [W, R] state, in either loop form.
+
+    ``rounds=None`` (cold): a round runs while ``more(rank, active)`` holds
+    (by default: some column has a mergeable pair), one 0-d bool read back
+    per test. ``rounds=k``: exactly ``k`` rounds, nothing read back.
+
+    Returns (ids, rank, active, rounds run).
+    """
+    global MERGE_ROUNDS
+    if more is None:
+        def more(rank, _active):
+            return rank.amin() < MAX_RANK
+    ran = 0
+    while (ran < rounds) if rounds is not None else _read_flag(more(rank, active)):
+        ids, rank, active = t3_round(ids, rank, active, pair_rows_cat, table_mask)
+        ran += 1
+    MERGE_ROUNDS += ran
+    return ids, rank, active, ran
+
+
 def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
-                  table_mask):
+                  table_mask, *, rounds=None):
     """Exact merge of a transposed piece matrix (column r holds piece r's
     bytes in rows 0..lens[r]-1). Semantics identical to the reference merge
     loop (``M/GptBytePairEncoding.java:200-275``).
 
-    Returns (ids_t int32[W, R], active_t bool[W, R]).
+    ``rounds``: see :func:`run_rounds`. Returns (ids_t int32[W, R],
+    active_t bool[W, R], rounds run).
     """
-    global MERGE_ROUNDS
     W, R = mat_t.shape
     dev = mat_t.device
     subl = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
@@ -121,10 +170,10 @@ def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
     rank = torch.where(is_pair, take_clip(byte_pair_id, b * 256 + b_next), -1)
     rank = torch.where(rank < 0, MAX_RANK, rank)
 
-    while bool((rank.amin() < MAX_RANK).item()):
-        ids, rank, active = t3_round(ids, rank, active, pair_rows_cat, table_mask)
-        MERGE_ROUNDS += 1
-    return ids, active
+    ids, _rank, active, ran = run_rounds(
+        ids, rank, active, pair_rows_cat, table_mask, rounds
+    )
+    return ids, active, ran
 
 
 def merge_rows(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
@@ -163,7 +212,7 @@ def merge_rows(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
     def at_lane(x, m):
         return x.gather(1, m[:, None].to(torch.int64))[:, 0]
 
-    while bool((rank.amin() < MAX_RANK).item()):
+    while _read_flag(rank.amin() < MAX_RANK):
         minval = rank.amin(dim=1)
         m = torch.where(rank == minval[:, None], lanes, L).amin(dim=1)
         do = minval < MAX_RANK

@@ -16,13 +16,33 @@ from .classify import take_clip
 def merge_bucket_v3(
     buf, starts, lens, miss_sorted, group_start_b, count_b,
     byte_to_id, byte_pair_id, pair_rows_cat, table_mask,
-    *, lanes: int, cap: int,
+    *, lanes: int, cap: int, rounds=None,
 ):
     """Exact merge of one bucket's pieces; ``cap`` columns, of which the
-    first ``count_b`` are live.
+    first ``count_b`` (an int or a 0-d tensor) are live. ``rounds`` is
+    :func:`merge.merge_rows_t3`'s.
 
     Returns (cols int32[cap] piece indices, ids int32[lanes, cap],
-    active bool[lanes, cap]).
+    active bool[lanes, cap], rounds run).
+    """
+    cols, live, c_len, mat_t = bucket_matrix(
+        buf, starts, lens, miss_sorted, group_start_b, count_b,
+        lanes=lanes, cap=cap,
+    )
+    ids, active, ran = merge.merge_rows_t3(
+        mat_t, c_len, byte_to_id, byte_pair_id, pair_rows_cat, table_mask,
+        rounds=rounds,
+    )
+    active = active & live[None, :]
+    return cols, ids, active, ran
+
+
+def bucket_matrix(buf, starts, lens, miss_sorted, group_start_b, count_b,
+                  *, lanes: int, cap: int):
+    """One bucket's pieces as columns of a byte matrix.
+
+    Returns (cols int32[cap] piece indices, live bool[cap], c_len int32[cap]
+    piece lengths (0 where dead), mat_t uint8[lanes, cap]).
     """
     N = buf.shape[0]
     M = miss_sorted.shape[0]
@@ -37,11 +57,7 @@ def merge_bucket_v3(
     grows = torch.arange(lanes, dtype=torch.int32, device=dev)[:, None]
     gidx = torch.clamp(c_start[None, :] + grows, max=N - 1)
     mat_t = torch.where(grows < c_len[None, :], take_clip(buf, gidx), 0)
-
-    ids, active = merge.merge_rows_t3(
-        mat_t, c_len, byte_to_id, byte_pair_id, pair_rows_cat, table_mask,
-    )
-    return cols, ids, active & live[None, :]
+    return cols, live, c_len, mat_t
 
 
 def counts_init(hit, n_pieces):
@@ -59,7 +75,10 @@ def make_offsets(counts, n_pieces):
     offsets = torch.cat([
         counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)
     ])
-    n_tokens = offsets[torch.clamp(n_pieces, max=P)]
+    # index_select, not offsets[...]: indexing by a 0-d tensor reads it back
+    n_tokens = offsets.index_select(
+        0, torch.clamp(n_pieces, max=P).reshape(1)
+    ).reshape(())
     return offsets, n_tokens
 
 

@@ -28,6 +28,17 @@ zeroes them once in :data:`CLEAR_EVERY` calls. Leaves and outputs move as
 16-byte words; a leaf that is a view at an odd offset (not 16-byte aligned)
 is taken all the same, through the kernel's 4-byte loads.
 
+Under a CUDA graph capture a call is recorded, not launched: it must find
+its stream's scratch already made and large enough (a tensor made during a
+capture would belong to the graph's pool and be zeroed again by every
+replay), so the capturing code first runs the same scans once on the capture
+stream, and the wrapper raises otherwise. A recorded call adds to
+:data:`CAPTURED_CALLS` and not to :data:`KERNEL_LAUNCHES`, which counts only
+where this wrapper launches the kernel itself. Whoever replays the graph
+calls :func:`count_replay` first: it keeps the clear of the status words on
+schedule and adds the scans the graph holds to :data:`REPLAYED_SCANS`, a
+number derived from the recording and not counted at a launch.
+
 The library is built and loaded by :mod:`._build` at the first launch.
 """
 
@@ -52,6 +63,11 @@ CLEAR_EVERY = (1 << EPOCH_BITS) - 1  # calls between two clears of a scratch
 # plain version because their tensors lay on the CPU
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
+# calls recorded into a CUDA graph under capture (no launch of their own)
+CAPTURED_CALLS = 0
+# scans that graph replays were told to hold (count_replay); the wrapper does
+# not see these launches, so a device profile is what confirms them
+REPLAYED_SCANS = 0
 
 
 def declare_functions(lib: ctypes.CDLL) -> None:
@@ -101,11 +117,21 @@ def scratch_for(device: torch.device, index, stream: int, n_words: int):
 
     A new or grown scratch is a zeroed tensor made on the current stream
     (the caller's, which is ``stream``), so the one it replaces returns to
-    the allocator in stream order. Two streams never share one.
+    the allocator in stream order. Two streams never share one. Under a
+    graph capture nothing may be made or cleared: the scratch must be there.
     """
     key = (index, stream)
     entry = SCRATCH.get(key)
-    if entry is None or entry.words.numel() < n_words:
+    renew = entry is None or entry.words.numel() < n_words
+    if (renew or entry.calls >= CLEAR_EVERY) and (
+        device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    ):
+        raise RuntimeError(
+            "scan under a CUDA graph capture: the capture stream has no"
+            " scratch ready for this call; run the same scans once on that"
+            " stream before capturing"
+        )
+    if renew:
         size = max(MIN_SCRATCH_WORDS, 1 << (n_words - 1).bit_length())
         entry = SCRATCH[key] = _Scratch(
             torch.zeros(size, dtype=torch.int64, device=device)
@@ -116,6 +142,26 @@ def scratch_for(device: torch.device, index, stream: int, n_words: int):
         entry.calls = 0
     entry.calls += 1
     return entry.words
+
+
+def count_replay(device: torch.device, stream: int, n_scans: int) -> None:
+    """Account for one replay of a CUDA graph that holds ``n_scans`` scan
+    calls recorded on ``stream`` (a stream handle); call it just before
+    ``graph.replay()``, on the stream that replays.
+
+    Adds the scans to the scratch's calls since its last clear (a replay
+    advances the epoch as launches do) and to :data:`REPLAYED_SCANS`, and
+    clears the status words first when the replay would carry the epoch past
+    :data:`CLEAR_EVERY` (the clear runs on the current stream, ahead of the
+    replay).
+    """
+    global REPLAYED_SCANS
+    entry = SCRATCH[(cuda_device_index(device), stream)]
+    if entry.calls + n_scans > CLEAR_EVERY:
+        entry.words[HEADER_WORDS:].zero_()
+        entry.calls = 0
+    entry.calls += n_scans
+    REPLAYED_SCANS += n_scans
 
 
 def empty_rows(n_leaves: int, n: int, device):
@@ -144,8 +190,9 @@ def _check(leaves, kinds):
 
 
 def scan_leaves_cuda(leaves, kinds, *, reverse: bool = False):
-    """Launch the kernel on CUDA leaves (one launch of the wrapper)."""
-    global KERNEL_LAUNCHES
+    """Launch the kernel on CUDA leaves (one launch of the wrapper), or
+    record that launch when the current stream is capturing a graph."""
+    global KERNEL_LAUNCHES, CAPTURED_CALLS
     leaves, kinds = list(leaves), tuple(kinds)
     n, dev = _check(leaves, kinds)
     if dev.type != "cuda":
@@ -171,7 +218,10 @@ def scan_leaves_cuda(leaves, kinds, *, reverse: bool = False):
     )
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED_CALLS += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return out
 
 

@@ -311,10 +311,14 @@ def piece_starts_v4(info: dict, pattern: str, *, ascii_chars: bool = False):
 
 
 def _nonzero_padded(mask, size: int, fill):
-    pos = torch.nonzero(mask).reshape(-1)[:size].to(torch.int32)
-    out = torch.full((size,), fill, dtype=torch.int32, device=mask.device)
-    out[: pos.shape[0]] = pos
-    return out
+    """Small masks: one sort of (index where True, else N). ``torch.nonzero``
+    would read its output's size back to the host."""
+    N = mask.shape[0]
+    idx = torch.arange(N, dtype=torch.int32, device=mask.device)
+    keys = torch.sort(torch.where(mask, idx, N)).values[:size]
+    if size > N:
+        keys = torch.cat([keys, _full(size - N, N, keys)])
+    return torch.where(keys < N, keys, fill)
 
 
 def _row_stitch(m2, size: int):
@@ -487,7 +491,8 @@ def stage_a_v4(
     # .at[sep_pos].set(True, mode="drop"): position N is the spare slot
     sep_pos = torch.where(doc_ends[: D - 1] < used, doc_ends[: D - 1], N)
     is_sep = torch.zeros(N + 1, dtype=torch.bool, device=dev)
-    is_sep[sep_pos.to(torch.int64)] = True
+    # index_fill_, not is_sep[...] = True: that copies its scalar from the host
+    is_sep.index_fill_(0, sep_pos.to(torch.int64), True)
     valid = (idx < used) & ~is_sep[:N]
 
     if variant == "ascii":

@@ -195,9 +195,11 @@ sys.meta_path.insert(0, Block())
 import jtokkit_tpu_torch
 import jtokkit_tpu_torch.engine.device
 import jtokkit_tpu_torch.ops.boundaries
+import jtokkit_tpu_torch.ops.colscan
 import jtokkit_tpu_torch.ops.decode
 import jtokkit_tpu_torch.ops.gather
 import jtokkit_tpu_torch.ops.merge
+import jtokkit_tpu_torch.ops.merge_exact
 import jtokkit_tpu_torch.ops.scan
 import jtokkit_tpu_torch.scripts.profile_gather
 import jtokkit_tpu_torch.utils.corpus

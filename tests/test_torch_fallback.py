@@ -154,7 +154,7 @@ def test_merge_rows_agrees_with_the_column_major_merge():
     t = port.tables
     args = (t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask)
     ids_r, act_r = merge.merge_rows(torch.from_numpy(mat), torch.from_numpy(lens), *args)
-    ids_c, act_c = merge.merge_rows_t3(
+    ids_c, act_c, _ran = merge.merge_rows_t3(
         torch.from_numpy(mat.T.copy()), torch.from_numpy(lens), *args
     )
     assert torch.equal(act_r, act_c.T)

@@ -46,7 +46,7 @@ def test_merge_rows_t3_matches_jax(name):
     )
     t = port.tables
     rounds = merge.MERGE_ROUNDS
-    ids_t, act_t = merge.merge_rows_t3(
+    ids_t, act_t, _ran = merge.merge_rows_t3(
         _t(mat), _t(lens), t.byte_to_id, t.byte_pair_id, t.pair_rows_cat,
         t.table_mask,
     )
@@ -106,7 +106,7 @@ def test_stage_b_and_c_match_jax(kind):
             jax_eng._byte_pair_seed, jax_eng._pair_rows_cat,
             jax_eng.packed.table_mask,
         )
-        cols_t, ids_t, act_t = pipeline.merge_bucket_v3(
+        cols_t, ids_t, act_t, _ran = pipeline.merge_bucket_v3(
             buf_t, tt["starts"], tt["lens"], tt["miss_sorted"],
             tt["group_start"][b], cnt, T.byte_to_id, T.byte_pair_id,
             T.pair_rows_cat, T.table_mask, lanes=lanes, cap=cap,

@@ -153,6 +153,57 @@ def test_more_tiles_than_resident_blocks():
 
 
 @pytest.mark.gpu
+def test_scan_under_graph_capture():
+    """A recorded scan needs its stream's scratch made beforehand; replays
+    give the plain version's result every time, also across the clear of the
+    status words, and count through ``count_replay`` as replayed scans, not
+    as launches of the wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an H100")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    kinds = ("max", "last", "add")
+    leaves = _leaves(kinds, (1 << 20) + 3, gen)
+    want = scan.scan_leaves_plain(leaves, kinds, reverse=True)
+    stream = torch.cuda.Stream()
+    key = (torch.cuda.current_device(), stream.cuda_stream)
+    assert key not in scan.SCRATCH
+    torch.cuda.synchronize()
+
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="scratch"):
+        with torch.cuda.graph(graph, stream=stream):
+            scan.scan_leaves(leaves, kinds, reverse=True)
+
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        scan.scan_leaves(leaves, kinds, reverse=True)  # makes the scratch
+    stream.synchronize()
+    launches, captured = scan.KERNEL_LAUNCHES, scan.CAPTURED_CALLS
+    replayed = scan.REPLAYED_SCANS
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = scan.scan_leaves(leaves, kinds, reverse=True)
+        got2 = scan.scan_leaves(got, kinds)
+    assert scan.CAPTURED_CALLS - captured == 2
+    assert scan.KERNEL_LAUNCHES == launches, "a recorded call counted as a launch"
+    want2 = scan.scan_leaves_plain(want, kinds)
+    entry = scan.SCRATCH[key]
+    for k in range(6):
+        if k == 3:
+            entry.calls = scan.CLEAR_EVERY - 1  # the clear falls due
+        for g in got + got2:
+            g.fill_(-7)
+        scan.count_replay(torch.device("cuda"), stream.cuda_stream, 2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same(got, want) and _same(got2, want2), k
+    assert scan.REPLAYED_SCANS - replayed == 12
+    assert scan.KERNEL_LAUNCHES == launches
+    assert entry.calls == 6  # cleared before the fourth replay
+
+
+@pytest.mark.gpu
 def test_gather_many_lookups_and_large_blocks():
     """2^24 lookups (every resident block makes several trips), and tables
     long enough for blocks of 512 and 1,024 threads, by the bulk copy and by
