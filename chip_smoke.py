@@ -12,8 +12,9 @@ Phases (each raises on failure, and then no result line is printed):
 
 1. Card: requires CUDA; prints nvidia-smi's name and power limit.
 2. Build: compiles both kernels (jtokkit_tpu_torch/csrc/scan.cu and
-   gather.cu) from the checkout, one nvcc each, started together; prints the
-   build time and each kernel's registers and shared memory.
+   gather.cu) and the native host engine (csrc/jtokkit_native.cc) from the
+   checkout, one nvcc or g++ each, started together; prints the build times
+   and each kernel's registers and shared memory.
 3. Each kernel against its plain PyTorch version on the card, exact int32
    equality. The scan first where a single-pass look-back can go wrong:
    1,000 calls back to back on one scratch and then more and fewer tiles,
@@ -26,21 +27,41 @@ Phases (each raises on failure, and then no result line is printed):
    out-of-range indices. Prints kernel, plain, library and bound times.
 4. The profiling entry point (jtokkit_tpu_torch.scripts.profile_gather), the
    gather kernel's path: its lines, and the kernel's launch count.
-5. Encode and count at full size: cl100k_base through the public registry on
-   the default device; encode_ordinary_batch and count_tokens_batch over
-   16 MB english, 2 MB mixed and 1 MB cjk (1 MiB chunks). Tokens are held
-   against the host oracle on a >= 1 MB sample of each corpus and on the four
-   conformance CSVs; counts against token lengths; the scan counters show
-   5 kernel launches per cl100k Stage A run and no plain-version call.
+5. Encode and count at full size on the device merge: cl100k_base from the
+   public registry on the default device, its engine built with
+   native_long=False (so cjk measures the device merge, not the host);
+   encode_ordinary_batch and count_tokens_batch over 16 MB english, 2 MB
+   mixed and 1 MB cjk (1 MiB chunks). Tokens are held against the host
+   oracle on a >= 1 MB sample of each corpus and on the four conformance
+   CSVs (through the registry); counts against token lengths; the scan
+   counters show 5 kernel launches per cl100k Stage A run and no
+   plain-version call.
 6. Decode: the tokens of the three corpora go back through
    decode_bytes_batch; the bytes equal the documents' UTF-8 and the numpy
    host decode, with one scan launch per call; special and unknown ids behave
    as the oracle does.
-7. Long pieces: english documents with a 5000-byte and a 4500-byte piece and
-   a 3000-byte CJK run mixed in; tokens equal the oracle, the chunks take the
-   device fallback (3 scan launches per fallback chunk beside Stage A's 5),
-   and exactly the pieces over 4096 bytes merge on the host.
-8. Steady state: per corpus, preload_corpus, then count_tokens_corpus cold
+7. Long pieces (native_long=False): english documents with a 5000-byte and
+   a 4500-byte piece and a 3000-byte CJK run mixed in; tokens equal the
+   oracle, the chunks take the device fallback (3 scan launches per fallback
+   chunk beside Stage A's 5), and exactly the pieces over 4096 bytes merge
+   on the host.
+8. Native routing, through the public registry as users get it: chunks
+   routed to the native engine out of all chunks per corpus, encode and
+   count MB/s against phase 5's native_long=False engine, a warmed cjk plan;
+   tokens equal the device-merge tokens and the oracle; single-text encode,
+   encode_ordinary and encode_capped on the four conformance CSVs equal the
+   expected rows.
+9. Data parallel: a world-1 NCCL group (parallel.mesh.initialize_distributed
+   over tcp://localhost), the ShardedTokenizer's cold and warmed count and
+   encode over 16 MB english and 1 MB cjk, equal to the single engine's,
+   timed in turns with it; the all_reduce and all_gather ms; the group is
+   destroyed.
+10. CLI: python -m jtokkit_tpu_torch.cli info, encode, decode and count as
+   subprocesses, started together; outputs equal the oracle's, and one run
+   without --device (its registry is on the card).
+11. Entry: jtokkit_tpu_torch.entry.entry() on the card equals the same step
+   with device="cpu".
+12. Steady state (native_long=False): per corpus, preload_corpus, then count_tokens_corpus cold
    and warmed (the warmed passes are CUDA graph replays and end in one host
    read; totals equal the cold pass and the encode phase; the wrapper
    launches no scan in them, and a torch.profiler window over one replayed
@@ -52,8 +73,9 @@ Phases (each raises on failure, and then no result line is printed):
    it), one warmed dispatch under torch.cuda.set_sync_debug_mode("error"),
    the packed fetch timed against an int32 fetch, the scan's clear falling
    due under a replay, and an engine with wide_min_lanes=64 over cjk and the
-   wide-routing documents (tokens equal the oracle's, cold and warmed).
-9. One JSON line of kernel numbers, then the last line
+   wide-routing documents (tokens equal the oracle's, cold and warmed). Its
+   device traces come after every timed pass of the script.
+13. One JSON line of kernel numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or jtokkit_tpu.
@@ -66,8 +88,11 @@ import ast
 import csv
 import json
 import os
+import socket
+import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -375,10 +400,12 @@ def phase_profile_gather(gather):
 
 
 def load_conformance(name: str):
+    """(input, tokens, first tokens up to 10) per row."""
     path = os.path.join(ROOT, "tests", "data", f"{name}_encodings.csv")
     with open(path, newline="") as f:
         return [
-            (r["input"], ast.literal_eval(r["output"]))
+            (r["input"], ast.literal_eval(r["output"]),
+             ast.literal_eval(r["outputMaxTokens10"]))
             for r in csv.DictReader(f, skipinitialspace=True)
         ]
 
@@ -399,16 +426,19 @@ def phase_main_path(card: str):
     import torch
 
     from jtokkit_tpu_torch import Encodings, EncodingType
+    from jtokkit_tpu_torch.engine.device import DeviceEngine
     from jtokkit_tpu_torch.ops import merge, scan
     from jtokkit_tpu_torch.utils import corpus
 
     t0 = time.time()
     registry = Encodings.new_default_encoding_registry()
     enc = registry.get_encoding(EncodingType.CL100K_BASE)
-    engine = enc.device_engine()
+    # the device merge for every chunk: no routing to the native engine
+    engine = DeviceEngine.from_oracle(enc.oracle, native_long=False)
     if engine.device.type != "cuda" or engine.chunk_bytes != 1 << 20:
         raise AssertionError(f"engine on {engine.device}, chunk {engine.chunk_bytes}")
-    log(f"registry + cl100k tables on {engine.device}: {time.time() - t0:.1f} s")
+    log(f"registry + cl100k tables on {engine.device}, engine built with "
+        f"native_long=False: {time.time() - t0:.1f} s")
 
     corpora = {
         "english": corpus.generate(16, flavor="english"),
@@ -416,8 +446,8 @@ def phase_main_path(card: str):
         "cjk": corpus.generate(1, flavor="cjk"),
     }
     # warm-up (allocator, library handles), not counted
-    enc.encode_ordinary_batch(corpora["english"][:16])
-    enc.count_tokens_batch(corpora["english"][:16])
+    engine.encode_ordinary_batch(corpora["english"][:16])
+    engine.count_tokens_batch(corpora["english"][:16])
     torch.cuda.synchronize()
 
     scan.KERNEL_LAUNCHES = 0
@@ -428,10 +458,10 @@ def phase_main_path(card: str):
     for name, docs in corpora.items():
         mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
         t = time.time()
-        tokens = enc.encode_ordinary_batch(docs)
+        tokens = engine.encode_ordinary_batch(docs)
         enc_s = time.time() - t
         t = time.time()
-        counts = enc.count_tokens_batch(docs)
+        counts = engine.count_tokens_batch(docs)
         cnt_s = time.time() - t
         results[name] = (docs, tokens, counts, mb, enc_s, cnt_s)
     launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
@@ -459,20 +489,20 @@ def phase_main_path(card: str):
                 raise AssertionError(f"{name}: tokens differ from the oracle")
         n_tok = sum(len(t) for t in tokens)
         log(f"{name}: {mb:.2f} MB, {len(docs)} docs, {n_tok} tokens; encode "
-            f"{mb / enc_s:.2f} MB/s, count {mb / cnt_s:.2f} MB/s "
+            f"{mb / enc_s:.2f} MB/s, count {mb / cnt_s:.2f} MB/s, native_long=False "
             f"({len(checked)} docs checked against the oracle) [{card}]")
 
     for name in ("r50k_base", "p50k_base", "p50k_edit", "cl100k_base"):
         rows = load_conformance(name)
         e = registry.get_encoding(name)
         got = e.encode_ordinary_batch([r[0] for r in rows])
-        for (text, want), g in zip(rows, got):
+        for (text, want, _w10), g in zip(rows, got):
             if g != want or g != e.oracle.encode_ordinary(text)[0]:
                 raise AssertionError(f"{name}: conformance row {text!r} differs")
         if e.count_tokens_batch([r[0] for r in rows]) != [len(g) for g in got]:
             raise AssertionError(f"{name}: conformance counts differ")
         log(f"{name}: {len(rows)} conformance rows equal on the card")
-    return enc, launches, results
+    return enc, engine, launches, results
 
 
 def phase_decode(enc, results, card: str):
@@ -530,15 +560,15 @@ def phase_decode(enc, results, card: str):
     return total_launches, rates
 
 
-def phase_long_pieces(enc, card: str):
-    """Chunks with a piece over the largest merge bucket, at 1 MiB chunks."""
+def phase_long_pieces(engine, card: str):
+    """Chunks with a piece over the largest merge bucket, at 1 MiB chunks, on
+    the native_long=False engine."""
     import torch
 
     from jtokkit_tpu_torch.engine import presplit
     from jtokkit_tpu_torch.ops import merge, scan, stage4
     from jtokkit_tpu_torch.utils import corpus
 
-    engine = enc.device_engine()
     docs = corpus.generate(1.5, seed=2, flavor="english")
     long_docs = ["a" * 5000, "x " + "b" * 4500 + " y", "intro " + "中文字" * 333 + " end"]
     for k, d in enumerate(long_docs):
@@ -556,13 +586,13 @@ def phase_long_pieces(enc, card: str):
     chunks0, pieces0 = engine.fallback_chunks, engine.host_pieces
     runs0 = engine.stage_a_runs
     t = time.time()
-    tokens = enc.encode_ordinary_batch(docs)
+    tokens = engine.encode_ordinary_batch(docs)
     torch.cuda.synchronize()
     enc_s = time.time() - t
     chunks, pieces = engine.fallback_chunks - chunks0, engine.host_pieces - pieces0
     rounds = merge.MERGE_ROUNDS
     t = time.time()
-    counts = enc.count_tokens_batch(docs)
+    counts = engine.count_tokens_batch(docs)
     cnt_s = time.time() - t
     launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
     if plain != 0:
@@ -582,7 +612,7 @@ def phase_long_pieces(enc, card: str):
         raise AssertionError(
             f"long pieces: {launches} scan launches for {runs} Stage A runs "
             f"and {2 * chunks} fallback chunks")
-    oracle = enc.oracle
+    oracle = engine.oracle
     for d, got in zip(docs, tokens):
         if got != oracle.encode_ordinary(d)[0]:
             raise AssertionError("long pieces: tokens differ from the oracle")
@@ -593,6 +623,290 @@ def phase_long_pieces(enc, card: str):
     return launches, {"mb": mb, "encode_s": enc_s, "count_s": cnt_s,
                       "fallback_chunks": chunks, "host_pieces": pieces,
                       "merge_rounds": rounds}
+
+
+def phase_native_routing(enc, results, card: str):
+    """The long-piece routing through the public registry, as users get it:
+    the registry's engine sends a chunk to the native host engine when its
+    pieces over 64 bytes may cover more than a quarter of its bytes. Rates
+    beside phase 5's (the same corpora on the native_long=False engine)."""
+    import torch
+
+    from jtokkit_tpu_torch import native
+    from jtokkit_tpu_torch.ops import scan
+
+    engine = enc.device_engine()
+    if not engine.native_long or engine.device.type != "cuda":
+        raise AssertionError("the registry's engine does not route long pieces")
+    scan.KERNEL_LAUNCHES = 0
+    scan.PLAIN_CALLS = 0
+    summary = {}
+    for name, (docs, tokens, _counts, mb, dm_enc_s, dm_cnt_s) in results.items():
+        n_chunks = sum(1 for _ in engine._plan_chunks(docs))
+        native0, fallback0 = engine.native_chunks, engine.fallback_chunks
+        t = time.time()
+        got = enc.encode_ordinary_batch(docs)
+        enc_s = time.time() - t
+        routed = engine.native_chunks - native0
+        t = time.time()
+        counts = enc.count_tokens_batch(docs)
+        cnt_s = time.time() - t
+        if engine.native_chunks - native0 != 2 * routed or engine.fallback_chunks != fallback0:
+            raise AssertionError(f"{name}: count took another route than encode")
+        if got != tokens or counts != [len(t) for t in tokens]:
+            raise AssertionError(f"{name}: routed tokens differ from the device merge's")
+        for d, g in zip(sample(docs, 0.1), got):
+            if g != enc.oracle.encode_ordinary(d)[0]:
+                raise AssertionError(f"{name}: routed tokens differ from the oracle")
+        summary[name] = {"chunks": n_chunks, "native_chunks": routed,
+                         "encode_mb_s": mb / enc_s, "count_mb_s": mb / cnt_s,
+                         "device_merge_encode_mb_s": mb / dm_enc_s,
+                         "device_merge_count_mb_s": mb / dm_cnt_s}
+        log(f"native routing {name}: {routed} of {n_chunks} chunks to the native engine; "
+            f"encode {mb / enc_s:.2f} MB/s, count {mb / cnt_s:.2f} MB/s (native_long=False, "
+            f"phase 5: {mb / dm_enc_s:.2f} / {mb / dm_cnt_s:.2f}); tokens equal the device "
+            f"merge's and the oracle's [{card}]")
+    if summary["cjk"]["native_chunks"] != summary["cjk"]["chunks"]:
+        raise AssertionError("not every cjk chunk went to the native engine")
+    if summary["english"]["native_chunks"] != 0:
+        raise AssertionError("an english chunk went to the native engine")
+
+    # a warmed cjk plan: the cached routing sends its chunks straight to the
+    # native engine, with no Stage A
+    docs, tokens, _counts, mb = results["cjk"][:4]
+    want_total = sum(len(t) for t in tokens)
+    plan = engine.preload_corpus(docs)
+    count_s, encode_s = [], []
+    for k in range(4):
+        torch.cuda.synchronize()
+        t = time.time()
+        total = engine.count_tokens_corpus(docs if k == 0 else None, plan=plan)
+        count_s.append(time.time() - t)
+        if k == 0:
+            runs = engine.stage_a_runs
+        t = time.time()
+        arrays = engine.encode_ordinary_batch_arrays(None, plan=plan)
+        encode_s.append(time.time() - t)
+        if total != want_total or [a.tolist() for a in arrays] != tokens:
+            raise AssertionError(f"cjk plan pass {k}: differs from the device merge")
+    if [c["kind"] for c in plan.chunk_cache] != ["native"] * len(plan):
+        raise AssertionError("the cjk plan cached another route")
+    if engine.stage_a_runs != runs:
+        raise AssertionError("a warmed routed pass ran Stage A")
+    summary["cjk_plan"] = {"count_mb_s": [mb / s for s in count_s],
+                           "encode_mb_s": [mb / s for s in encode_s]}
+    log(f"native routing cjk plan ({len(plan)} chunks): count cold {mb / count_s[0]:.2f}, "
+        f"warmed {' / '.join(f'{mb / s:.2f}' for s in count_s[1:])} MB/s; encode "
+        f"{mb / encode_s[0]:.2f}, {' / '.join(f'{mb / s:.2f}' for s in encode_s[1:])} MB/s; "
+        f"Stage A only in the cold pass [{card}]")
+
+    # single-text calls of the facade run on the native engine
+    from jtokkit_tpu_torch import Encodings
+
+    registry = Encodings.new_lazy_encoding_registry()
+    for name in ("r50k_base", "p50k_base", "p50k_edit", "cl100k_base"):
+        e = enc if name == "cl100k_base" else registry.get_encoding(name)
+        if not isinstance(e.native_engine(), native.NativeEngine):
+            raise AssertionError(f"{name}: the facade has no native engine")
+        rows = load_conformance(name)
+        for text, want, want10 in rows:
+            if (e.encode(text) != want or e.encode_ordinary(text) != want
+                    or e.encode_capped(text, 10).tokens != want10):
+                raise AssertionError(f"{name}: single-text row {text!r} differs")
+        log(f"{name}: {len(rows)} conformance rows equal through encode, encode_ordinary "
+            f"and encode_capped on the native engine")
+    launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
+    if plain != 0 or launches <= 0:
+        raise AssertionError(f"native routing: {launches} scan launches, {plain} plain")
+    summary["slots"] = len(native._slots)
+    return launches, summary
+
+
+def phase_sharded(enc, results, card: str):
+    """Data parallel on the card: a world-1 NCCL group (NCCL refuses two ranks
+    on one device), the sharded count and encode against the single engine,
+    timed in turns with it, and the collectives' times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from jtokkit_tpu_torch.ops import scan
+    from jtokkit_tpu_torch.parallel import mesh
+    from jtokkit_tpu_torch.parallel.sharded import ShardedTokenizer
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dev = mesh.initialize_distributed(f"tcp://localhost:{port}", 1, 0)
+    if dev.type != "cuda" or dist.get_backend() != "nccl":
+        raise AssertionError(f"group on {dev}, backend {dist.get_backend()}")
+    engine = enc.device_engine()
+    tok = ShardedTokenizer(engine)
+    scan.KERNEL_LAUNCHES = 0
+    scan.PLAIN_CALLS = 0
+    summary = {"world_size": tok.n_dev, "backend": dist.get_backend()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    for name in ("english", "cjk"):
+        docs, tokens, _counts, mb = results[name][:4]
+        want_total = sum(len(t) for t in tokens)
+        want = [np.asarray(t, np.int32) for t in tokens]
+        plan = tok.preload_corpus(docs)
+        single = engine.preload_corpus(docs)
+        row = {"mb": mb}
+        for label, fn in (
+            ("count", lambda p: tok.count_tokens_corpus(None, plan=p)),
+            ("single_count", lambda p: engine.count_tokens_corpus(None, plan=p)),
+        ):
+            p = plan if label == "count" else single
+            cold, cold_s = timed(lambda: fn(p))
+            first, first_s = timed(lambda: fn(p))  # captures the graphs
+            warm = [timed(lambda: fn(p)) for _ in range(3)]
+            if {cold, first, *[w[0] for w in warm]} != {want_total}:
+                raise AssertionError(f"sharded {name}: {label} differs from the encode phase")
+            row[label] = {"cold_mb_s": mb / cold_s, "capture_pass_s": first_s,
+                          "warm_mb_s": [mb / w[1] for w in warm]}
+        for label, fn in (
+            ("encode", lambda: tok.encode_ordinary_batch_arrays(None, plan=plan)),
+            ("single_encode", lambda: engine.encode_ordinary_batch_arrays(None, plan=single)),
+            ("encode_again", lambda: tok.encode_ordinary_batch_arrays(None, plan=plan)),
+        ):
+            passes = [timed(fn) for _ in range(3)]  # cold, then warmed
+            for arrays, _s in passes:
+                if len(arrays) != len(want) or any(
+                        not np.array_equal(a, w) for a, w in zip(arrays, want)):
+                    raise AssertionError(f"sharded {name}: {label} differs from the encode phase")
+            row[label] = [mb / p[1] for p in passes]
+        summary[name] = row
+        c, sc = row["count"], row["single_count"]
+        log(f"sharded {name} {mb:.2f} MB, world 1 (NCCL): count cold {c['cold_mb_s']:.2f}, "
+            f"warmed {' / '.join(f'{x:.2f}' for x in c['warm_mb_s'])} MB/s; single engine "
+            f"cold {sc['cold_mb_s']:.2f}, warmed {' / '.join(f'{x:.2f}' for x in sc['warm_mb_s'])}; "
+            f"encode {' / '.join(f'{x:.2f}' for x in row['encode'] + row['encode_again'])} MB/s, "
+            f"single engine {' / '.join(f'{x:.2f}' for x in row['single_encode'])}; totals and "
+            f"arrays equal the single engine's [{card}]")
+    launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
+    if plain != 0 or launches <= 0:
+        raise AssertionError(f"sharded: {launches} scan launches, {plain} plain calls")
+
+    # the collectives alone, at this path's shapes: the count's one int64
+    # and the english encode's gathered payload (counts + tokens, int32)
+    def coll_ms(fn, n=20):
+        times = []
+        for _ in range(n):
+            _out, sec = timed(fn)
+            times.append(sec * 1e3)
+        return sorted(times)[n // 2]
+
+    one = torch.ones(1, dtype=torch.int64, device=dev)
+    size = len(results["english"][1]) + sum(len(t) for t in results["english"][1])
+    payload = torch.zeros(size, dtype=torch.int32, device=dev)
+    gathered = [torch.empty_like(payload)]
+    summary["all_reduce_ms"] = coll_ms(lambda: dist.all_reduce(one))
+    summary["all_gather_ms"] = coll_ms(lambda: dist.all_gather(gathered, payload))
+    summary["all_gather_bytes"] = 4 * size
+    summary["collectives"] = dict(tok.collectives)
+    dist.destroy_process_group()
+    log(f"sharded collectives (median of 20, host clock): all_reduce of 1 int64 "
+        f"{summary['all_reduce_ms']:.3f} ms, all_gather of {4 * size} bytes "
+        f"{summary['all_gather_ms']:.3f} ms; the tokenizer made {tok.collectives}; "
+        f"{launches} scan kernel launches on this path; group destroyed [{card}]")
+    return launches, summary
+
+
+def phase_cli(enc, card: str):
+    """The CLI as users run it: one subprocess per subcommand, all started
+    together; outputs equal the oracle's. The decode and the count run
+    without --device (the CUDA card by default)."""
+    from jtokkit_tpu_torch import cli
+
+    text = "Hello, world! 中文 🙂 <|endoftext|> twice"
+    oracle = enc.oracle
+    ids = oracle.encode_ordinary(text)[0]
+    runs = {
+        "info": ["info"],
+        "encode": ["encode", "--ordinary", "--device", "cuda", text],
+        "decode": ["decode"] + [str(i) for i in ids],
+        "count": ["count", "--ordinary", text],
+        "encode_r50k": ["encode", "--encoding", "r50k_base", "--device", "cuda:0", "I'm 42"],
+    }
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.time()
+    procs = {
+        k: subprocess.Popen([sys.executable, "-m", "jtokkit_tpu_torch.cli", *argv],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+        for k, argv in runs.items()
+    }
+    out = {}
+    try:
+        for k, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"cli {k} exited {p.returncode}:\n{stderr[-2000:]}")
+            out[k] = stdout
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.time() - t
+    info = json.loads(out["info"])
+    if info["encodings"] != ["r50k_base", "p50k_base", "p50k_edit", "cl100k_base"]:
+        raise AssertionError(f"cli info: {info['encodings']}")
+    from jtokkit_tpu_torch import Encodings
+
+    r50k = Encodings.new_lazy_encoding_registry().get_encoding("r50k_base")
+    checks = {
+        "encode": json.loads(out["encode"]) == ids,
+        "decode": out["decode"] == text,
+        "count": int(out["count"]) == len(ids),
+        "encode_r50k": json.loads(out["encode_r50k"]) == r50k.oracle.encode_ordinary("I'm 42")[0],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"cli outputs differ from the oracle: {checks}")
+    default = cli._get_encoding("cl100k_base", None).device_engine().device
+    if default.type != "cuda":
+        raise AssertionError(f"the CLI's default registry is on {default}")
+    log(f"cli: info, encode, decode, count and encode --encoding r50k_base as 5 "
+        f"subprocesses in {seconds:.1f} s; outputs equal the oracle's; without --device "
+        f"the registry is on {default} [{card}]")
+    return {"seconds": seconds, "subcommands": sorted(runs)}
+
+
+def phase_entry(card: str):
+    """The entry step (``entry.entry()``) on the card against the same step
+    on the CPU."""
+    import numpy as np
+
+    from jtokkit_tpu_torch import entry
+    from jtokkit_tpu_torch.ops import scan
+
+    fn, args = entry.entry()
+    if any(a.device.type != "cuda" for a in args):
+        raise AssertionError("entry(): example arguments are not on the card")
+    scan.KERNEL_LAUNCHES = 0
+    scan.PLAIN_CALLS = 0
+    got = [x.cpu().numpy() for x in fn(*args)]
+    launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    want = [x.numpy() for x in cpu_fn(*cpu_args)]
+    if len(got) != len(want) or not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("entry(): the step on the card differs from the CPU's")
+    if launches != 5 or plain != 0:
+        raise AssertionError(f"entry(): {launches} scan launches, {plain} plain calls")
+    log(f"entry: Stage A v4 + merge_rows_t3 on the card equal the CPU step "
+        f"(meta {got[0].tolist()}, {int(got[3].sum())} active ids); {launches} scan "
+        f"kernel launches [{card}]")
+    return launches
 
 
 def profiled_kernels(fn):
@@ -612,18 +926,18 @@ def profiled_kernels(fn):
     return out, scans, sum(e.count for e in device)
 
 
-def phase_steady_state(enc, results, card: str, scan_rows):
-    """The steady-state path over warmed corpus plans, at full width: the
-    corpus-mapped count as graph replays, the cached dispatch with the packed
-    inline fetch, and the wide-bucket engine. ``scan_rows``: the shapes at
-    which the scan kernel was held against its plain version."""
+def phase_steady_state(engine, results, card: str, scan_rows):
+    """The steady-state path over warmed corpus plans, at full width, on the
+    native_long=False engine: the corpus-mapped count as graph replays, the
+    cached dispatch with the packed inline fetch, and the wide-bucket engine.
+    ``scan_rows``: the shapes at which the scan kernel was held against its
+    plain version."""
     import numpy as np
     import torch
 
     from jtokkit_tpu_torch.engine.device import CorpusPlan, DeviceEngine, _next_pow2
     from jtokkit_tpu_torch.ops import merge, scan
 
-    engine = enc.device_engine()
     dev = engine.device
     scan.KERNEL_LAUNCHES = 0
     scan.PLAIN_CALLS = 0
@@ -843,7 +1157,7 @@ def phase_steady_state(enc, results, card: str, scan_rows):
     }
 
     # ---- the wide engine: buckets of 64 lanes and more through merge_exact
-    wide = DeviceEngine.from_oracle(enc.oracle, wide_min_lanes=64)
+    wide = DeviceEngine.from_oracle(engine.oracle, wide_min_lanes=64, native_long=False)
     if wide.device.type != "cuda":
         raise AssertionError(f"wide engine on {wide.device}")
     wide_docs = [
@@ -851,7 +1165,7 @@ def phase_steady_state(enc, results, card: str, scan_rows):
         "mixed 短い run with spaces and 漢字" * 6,
         "plain english words stay on the narrow engine.",
     ]
-    want = [enc.oracle.encode_ordinary(t)[0] for t in wide_docs]
+    want = [engine.oracle.encode_ordinary(t)[0] for t in wide_docs]
     small = wide.preload_corpus(wide_docs)
     for k in range(3):
         if [a.tolist() for a in wide.encode_ordinary_batch_arrays(None, plan=small)] != want:
@@ -877,7 +1191,7 @@ def phase_steady_state(enc, results, card: str, scan_rows):
     if total != sum(len(t) for t in tokens) or plan.mapped_count is not None:
         raise AssertionError("wide engine: cjk count differs, or the plan was mapped")
     narrow = summary["cjk"]
-    log(f"wide engine (wide_min_lanes=64) cjk {mb:.2f} MB: encode cold {mb / wide_cold_s:.2f} "
+    log(f"wide engine (wide_min_lanes=64, native_long=False) cjk {mb:.2f} MB: encode cold {mb / wide_cold_s:.2f} "
         f"MB/s ({wide_rounds} merge rounds), warmed "
         f"{' / '.join(f'{mb / s:.2f}' for s in wide_warm_s)} MB/s, warmed count (staged) "
         f"{mb / wide_count_s:.2f} MB/s; narrow: encode cold {narrow['encode_cold_mb_s']:.2f}, "
@@ -1007,28 +1321,56 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from jtokkit_tpu_torch.ops import _build, gather, scan
+    from jtokkit_tpu_torch import native
+    from jtokkit_tpu_torch.ops import gather, scan
+
+    def timed_build(fn):
+        t = time.time()
+        fn()
+        return time.time() - t
 
     t = time.time()
     libraries = [scan.LIBRARY, gather.LIBRARY]
-    _build.build_all(libraries)
-    log(f"build: {len(libraries)} kernels in {time.time() - t:.1f} s")
+    builds = [(lib.name, lib.build) for lib in libraries] + [("native", native.build)]
+    with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each, together
+        futures = [(name, pool.submit(timed_build, fn)) for name, fn in builds]
+        build_s = {name: f.result() for name, f in futures}
+    log(f"build: {len(libraries)} kernels and the native engine in "
+        f"{time.time() - t:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
     for lib in libraries:
         log(f"  {lib.name}: {lib.path()}")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("    " + line.strip())
+    log(f"  native: {native.library_path()}")
+    for line in native.BUILD_LOG.splitlines():
+        log("    " + line.strip())
 
     rows, max_err = phase_kernel(scan)
     gather_row = phase_gather(gather)
     gather_launches = phase_profile_gather(gather)
-    enc, launches, results = phase_main_path(card)
-    decode_launches, decode_rates = phase_decode(enc, results, card)
-    long_launches, long_row = phase_long_pieces(enc, card)
-    steady_launches, steady_replayed, steady_row = phase_steady_state(
-        enc, results, card, rows)
+    phase_s = {}
+
+    def phase(name, fn, *fn_args):
+        t = time.time()
+        out = fn(*fn_args)
+        phase_s[name] = time.time() - t
+        return out
+
+    enc, device_merge, launches, results = phase("main_path", phase_main_path, card)
+    decode_launches, decode_rates = phase("decode", phase_decode, enc, results, card)
+    long_launches, long_row = phase("long_pieces", phase_long_pieces, device_merge, card)
+    native_launches, native_row = phase(
+        "native_routing", phase_native_routing, enc, results, card)
+    native_row["build_s"] = build_s["native"]
+    sharded_launches, sharded_row = phase("sharded", phase_sharded, enc, results, card)
+    cli_row = phase("cli", phase_cli, enc, card)
+    entry_launches = phase("entry", phase_entry, card)
+    steady_launches, steady_replayed, steady_row = phase(
+        "steady_state", phase_steady_state, device_merge, results, card, rows)
     if args.profile is not None:
-        phase_profile(card, args.profile)
+        phase("profile", phase_profile, card, args.profile)
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     head = rows[1]  # max,max,add at n = 2^20: the largest scan of Stage A
     kernels = [{
@@ -1036,9 +1378,13 @@ def main() -> int:
         "route": "cuda",
         "source": "jtokkit_tpu_torch/csrc/scan.cu",
         "replaces": REPLACES_SCAN,
-        "launches": launches + decode_launches + long_launches + steady_launches,
+        "launches": (launches + decode_launches + long_launches + native_launches
+                     + sharded_launches + entry_launches + steady_launches),
         "launches_by_path": {"encode_count": launches, "decode": decode_launches,
                              "long_pieces": long_launches,
+                             "native_routing": native_launches,
+                             "sharded": sharded_launches, "cli": 0,
+                             "entry": entry_launches,
                              "steady_state": steady_launches},
         # scans inside CUDA graph replays pass through no wrapper and are in
         # no launch count above: "recorded" sums what the replayed graphs
@@ -1073,7 +1419,9 @@ def main() -> int:
                       "count_mb_s": r[3] / r[5], "decode_mb_s": decode_rates[name]}
                for name, r in results.items()}
     log(json.dumps({"main_path": summary, "long_pieces": long_row,
-                    "steady_state": steady_row, "card": card,
+                    "native_routing": native_row, "sharded": sharded_row,
+                    "cli": cli_row, "steady_state": steady_row, "card": card,
+                    "build_s": build_s, "phase_s": phase_s,
                     "seconds": time.time() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

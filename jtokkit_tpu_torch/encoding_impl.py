@@ -1,11 +1,14 @@
 """Concrete byte-pair encoding bound to the host oracle and (lazily) the
 device engine.
 
-Single-text calls follow the reference's semantics exactly through the host
-oracle (reference ``M/GptBytePairEncoding.java``); batch calls (encode,
-count, decode) run on the device engine (the two are differential-tested to
-be identical). The device is fixed when the encoding is made: ``None`` means
-the CUDA card, and without one the constructor raises.
+Single-text calls follow the reference's semantics exactly
+(reference ``M/GptBytePairEncoding.java``): encode and capped encode run on
+the native C++ host engine (``native.py``) for the built-in pre-split
+families over a vocabulary with all 256 single bytes, else on the host
+oracle; batch calls (encode, count, decode) run on the device engine (all
+three are differential-tested to be identical). The device is fixed when
+the encoding is made: ``None`` means the CUDA card, and without one the
+constructor raises.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ class GptBytePairEncoding(Encoding):
             params.special_tokens_encoder,
         )
         self._device_engine = None
+        self._native_engine = None
+        self._native_tried = False
         self._device_lock = threading.Lock()
 
     # -- engines --------------------------------------------------------
@@ -59,6 +64,32 @@ class GptBytePairEncoding(Encoding):
                     )
         return self._device_engine
 
+    def native_engine(self):
+        """The C++ host engine (built on first use; a failed build raises).
+
+        Custom regex patterns and vocabularies without all 256 single bytes
+        return ``None`` and stay on the Python oracle.
+        """
+        if not self._native_tried:
+            with self._device_lock:
+                if not self._native_tried:
+                    if self._params.pattern in BUILTIN_PATTERNS and all(
+                        bytes([b]) in self._params.encoder for b in range(256)
+                    ):
+                        from .engine.device import _maybe_asset_path
+                        from .native import NativeEngine
+                        from .vocab.tables import load_packed
+
+                        packed = load_packed(
+                            self._params.name, self._params.encoder,
+                            _maybe_asset_path(self._params.name),
+                        )
+                        self._native_engine = NativeEngine(
+                            packed, self._params.pattern
+                        )
+                    self._native_tried = True
+        return self._native_engine
+
     # -- Encoding contract ---------------------------------------------
 
     def encode(self, text: Optional[str]) -> List[int]:
@@ -76,6 +107,9 @@ class GptBytePairEncoding(Encoding):
     def encode_ordinary(self, text: Optional[str]) -> List[int]:
         if text is None:
             return []
+        native = self.native_engine()
+        if native is not None:
+            return native.encode_ordinary(text)
         return self._oracle.encode_ordinary(text)[0]
 
     def encode_ordinary_capped(
@@ -83,6 +117,16 @@ class GptBytePairEncoding(Encoding):
     ) -> EncodingResult:
         if text is None:
             return EncodingResult([], False)
+        native = self.native_engine()
+        if native is not None:
+            # the capped result is the first max_tokens tokens of the full
+            # encoding with the multibyte repair applied (the reference's
+            # early-exit loop and clipping give exactly this prefix,
+            # M/GptBytePairEncoding.java:79-100,110-119); the native scan
+            # stops at the cap, so this is O(prefix)
+            prefix = native.encode_ordinary_capped_array(text, max_tokens).tolist()
+            tokens, truncated = self._oracle._repair_truncation(text, prefix)
+            return EncodingResult(tokens, truncated)
         tokens, truncated = self._oracle.encode_ordinary(text, max_tokens)
         return EncodingResult(tokens, truncated)
 

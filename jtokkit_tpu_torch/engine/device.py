@@ -19,7 +19,11 @@ methods). Per batch (documents -> token ids):
    piece boundaries (``ops/boundaries.piece_starts``) and the row-major
    merge of every piece up to 4096 bytes (``ops/merge.merge_rows``) still
    run on the device, and only the oversized pieces themselves are merged
-   on the host, one by one (``host_pieces``).
+   on the host, one by one (``host_pieces``). Chunks whose pieces over 64
+   bytes may cover more than a quarter of their bytes go to the native C++
+   host engine instead (``native.py``; ``native_chunks``), as in the
+   reference: there the device merge would run one round per byte of the
+   longest piece. ``native_long=False`` keeps them on the device.
 4. Stage B per nonempty bucket: exact byte-pair merge
    (``ops/pipeline.merge_bucket_v3``), capacity the smallest power of two
    covering the bucket's count.
@@ -54,7 +58,9 @@ card they raise.
 
 from __future__ import annotations
 
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -169,7 +175,8 @@ class DeviceEngine:
     def __init__(self, name: str, pattern: str, packed: vtables.PackedVocabulary,
                  oracle: OracleEngine, *, device=None,
                  chunk_bytes: int = CHUNK_BYTES,
-                 wide_min_lanes: int = 1 << 30):
+                 wide_min_lanes: int = 1 << 30,
+                 native_long: bool = True):
         self.name = name
         self.pattern = pattern
         self.packed = packed
@@ -192,6 +199,12 @@ class DeviceEngine:
         # merge-engine crossover: buckets with lanes >= wide_min_lanes run
         # the wide-bucket hybrid (ops/merge_exact); off by default
         self.wide_min_lanes = int(wide_min_lanes)
+        # long-piece routing: chunks dominated by pieces over 64 bytes go to
+        # the native host engine (built at the first such chunk), counted in
+        # native_chunks
+        self.native_long = bool(native_long)
+        self.native_chunks = 0
+        self._native = None
         # ids over 16 bits (cl100k) ship a 1-bit plane beside the low halves
         self._fetch_wide = packed.n_tokens > 0xFFFF
         self._capture_stream = None  # made at the first graph capture
@@ -206,14 +219,27 @@ class DeviceEngine:
     @classmethod
     def from_oracle(cls, oracle: OracleEngine, *, device=None,
                     chunk_bytes: int = CHUNK_BYTES,
-                    wide_min_lanes: int = 1 << 30) -> "DeviceEngine":
+                    wide_min_lanes: int = 1 << 30,
+                    native_long: bool = True) -> "DeviceEngine":
         device = resolve_device(device)
         packed = vtables.load_packed(
             oracle.name, oracle.ranks, _maybe_asset_path(oracle.name)
         )
         return cls(oracle.name, oracle.pattern, packed, oracle,
                    device=device, chunk_bytes=chunk_bytes,
-                   wide_min_lanes=wide_min_lanes)
+                   wide_min_lanes=wide_min_lanes, native_long=native_long)
+
+    def _native_engine(self):
+        """The native host engine for long-piece chunks, built on first use;
+        None when routing is off or the vocabulary lacks a single byte (the
+        facade's rule). A failed build raises."""
+        if self._native is None and self.native_long and (
+            self.packed.byte_to_id >= 0
+        ).all():
+            from ..native import NativeEngine
+
+            self._native = NativeEngine(self.packed, self.pattern)
+        return self._native
 
     def _read(self, t: torch.Tensor) -> np.ndarray:
         """Fetch a device tensor to the host (one host read)."""
@@ -408,7 +434,7 @@ class DeviceEngine:
             plan, plan.chunk_cache
         ):
             if c["kind"] != "ok":
-                self.fallback_chunks += 1
+                self._count_route(c["kind"])
                 results.append((c["kind"], buf, doc_ends, parts))
                 continue
             table, _meta = self._stage_a(c["variant"], c["divs"], buf_dev, de_dev)
@@ -436,8 +462,8 @@ class DeviceEngine:
         :meth:`_process_chunks_cached`.
 
         Returns one result per chunk: ("ok", parts, tokens, n_tokens,
-        doc_counts) with device tensors, or ("fallback", buf, doc_ends,
-        parts).
+        doc_counts) with device tensors, or ("fallback" or "native", buf,
+        doc_ends, parts).
         """
         if plan is None:
             plan = self.preload_corpus(texts)
@@ -482,6 +508,18 @@ class DeviceEngine:
                 cache.append({"kind": "fallback"})
                 continue
             bucket_counts = metas[i][2:]
+            # the reference's rule: the bucket widths bound the bytes of the
+            # pieces over 64 bytes; over a quarter of the chunk, its merge
+            # is cheaper on the native engine's heap merge
+            long_bytes = sum(
+                int(bucket_counts[b]) * w
+                for b, w in enumerate(stage4.BUCKET_WIDTHS) if w > 64
+            )
+            if long_bytes * 4 > len(buf) and self._native_engine() is not None:
+                self.native_chunks += 1
+                results.append(("native", buf, doc_ends, parts))
+                cache.append({"kind": "native"})
+                continue
             caps = [
                 (b, lanes, self._bucket_cap(len(buf), lanes, int(bucket_counts[b])),
                  int(bucket_counts[b]))
@@ -757,6 +795,53 @@ class DeviceEngine:
         ]
 
     # ------------------------------------------------------------------
+    # chunks off the staged path: the native engine and the fallback
+    # ------------------------------------------------------------------
+
+    def _count_route(self, kind: str) -> None:
+        if kind == "native":
+            self.native_chunks += 1
+        else:
+            self.fallback_chunks += 1
+
+    @staticmethod
+    def _encode_chunk_native(nat, buf, doc_ends, parts):
+        """[(doc_idx, int32 tokens)] of one chunk through the native engine,
+        one entry per nonempty chunk-document in order."""
+        out = []
+        prev = 0
+        for k, doc_idx in enumerate(parts):
+            end = int(doc_ends[k])
+            start = prev if k == 0 else prev + 1
+            if end > start:
+                out.append((doc_idx, nat.encode_bytes(buf[start:end])))
+            prev = end
+        return out
+
+    def _run_host_chunks(self, results):
+        """Token lists of every result that left the staged path:
+        {result index: [(doc_idx, int32 tokens)] in the chunk's document
+        order}. Native chunks run on a thread pool (the C calls release the
+        GIL) while the fallback chunks run here; callers consume the lists in
+        result order, so a document spanning device and host chunks keeps
+        its token order."""
+        natives = [i for i, r in enumerate(results) if r[0] == "native"]
+        out = {}
+        with ThreadPoolExecutor(max(1, min(len(natives), os.cpu_count() or 2))) as pool:
+            if natives:
+                nat = self._native_engine()
+                futures = {
+                    i: pool.submit(self._encode_chunk_native, nat, *results[i][1:])
+                    for i in natives
+                }
+            for i, r in enumerate(results):
+                if r[0] == "fallback":
+                    out[i] = self._encode_chunk_fallback(*r[1:])
+            for i in natives:
+                out[i] = futures[i].result()
+        return out
+
+    # ------------------------------------------------------------------
     # public batch API
     # ------------------------------------------------------------------
 
@@ -809,15 +894,16 @@ class DeviceEngine:
             else self._start_fetch(pinned, k, r[2], n_tokens[k], None)
             for k, r in enumerate(ok)
         ]
+        host = self._run_host_chunks(results)
         if ok:
             self._wait_fetches()
         # first encode pass over a plan: record per-chunk escape counts (the
         # 12-bit packed-fetch decision of later passes)
         new_esc = [] if is_plan and plan.esc_counts is None else None
         oki = 0
-        for res in results:
-            if res[0] == "fallback":
-                for doc_idx, toks in self._encode_chunk_fallback(*res[1:]):
+        for ri, res in enumerate(results):
+            if res[0] != "ok":
+                for doc_idx, toks in host[ri]:
                     parts_out[doc_idx].append(toks)
                 continue
             parts = res[1]
@@ -857,10 +943,11 @@ class DeviceEngine:
         ok = [r for r in results if r[0] == "ok"]
         if ok:
             small = self._read(torch.cat([r[4] for r in ok]))
+        host = self._run_host_chunks(results)
         pos = 0
-        for res in results:
-            if res[0] == "fallback":
-                for doc_idx, toks in self._encode_chunk_fallback(*res[1:]):
+        for ri, res in enumerate(results):
+            if res[0] != "ok":
+                for doc_idx, toks in host[ri]:
                     counts[doc_idx] += len(toks)
                 continue
             parts, doc_counts_dev = res[1], res[4]
@@ -1023,29 +1110,38 @@ class DeviceEngine:
         replay per block of up to 8 chunks and ONE scalar fetch per pass.
         Plans with a wide-bucket chunk stay on the staged dispatch (their
         per-phase state would multiply a block's size, and such corpora are
-        merge-bound anyway); chunks routed to the long-piece fallback keep
-        their path.
+        merge-bound anyway); chunks routed to the native engine or the
+        long-piece fallback keep their path.
         """
+        dev_total, host_total = self._count_parts(texts, plan)
+        if dev_total is None:
+            return host_total
+        return int(self._read(dev_total)) + host_total
+
+    def _count_parts(self, texts, plan):
+        """(the device chunks' total as a 0-d int64 tensor on the device or
+        None, the host chunks' total as an int), nothing of the first read
+        back."""
         if (
             isinstance(plan, CorpusPlan) and plan.chunk_cache is not None
             and not self._uses_wide(plan)
         ):
             sums = [self._run_block(blk) for blk in self._mapped_count_groups(plan)]
             results = [
-                ("fallback", e[0], e[1], e[2])
+                (c["kind"], e[0], e[1], e[2])
                 for e, c in zip(plan, plan.chunk_cache) if c["kind"] != "ok"
             ]
-            self.fallback_chunks += len(results)
+            for r in results:
+                self._count_route(r[0])
         else:
             results = self._process_chunks(texts, want_tokens=False, plan=plan)
             sums = [r[3] for r in results if r[0] == "ok"]
-        total = int(self._read(torch.stack(sums).sum())) if sums else 0
-        for res in results:
-            if res[0] == "fallback":
-                total += sum(
-                    len(toks) for _d, toks in self._encode_chunk_fallback(*res[1:])
-                )
-        return total
+        dev_total = torch.stack(sums).sum().to(torch.int64) if sums else None
+        host_total = sum(
+            len(toks) for lists in self._run_host_chunks(results).values()
+            for _d, toks in lists
+        )
+        return dev_total, host_total
 
     # ------------------------------------------------------------------
     # batch decode

@@ -39,7 +39,10 @@ EDGE_CASES = [
 
 
 def engines(name):
-    """(JAX oracle, JAX engine, port engine on the CPU)."""
+    """(JAX oracle, JAX engine, port engine on the CPU). The port engine keeps
+    long-piece chunks on the device merge (``native_long=False``): these
+    tests hold the device path, and ``tests/test_torch_native.py`` the
+    routing."""
     if name not in _CACHE:
         d = BUILTIN_DEFINITIONS[name]
         orc = JaxOracle(
@@ -52,7 +55,9 @@ def engines(name):
         _CACHE[name] = (
             orc,
             JaxEngine.from_oracle(orc),
-            DeviceEngine.from_oracle(port_orc, device="cpu", chunk_bytes=1 << 17),
+            DeviceEngine.from_oracle(
+                port_orc, device="cpu", chunk_bytes=1 << 17, native_long=False
+            ),
         )
     return _CACHE[name]
 
@@ -192,25 +197,38 @@ class Block:
             raise ImportError("imported " + name)
 
 sys.meta_path.insert(0, Block())
+import importlib
+import pkgutil
+
 import jtokkit_tpu_torch
-import jtokkit_tpu_torch.engine.device
-import jtokkit_tpu_torch.ops.boundaries
-import jtokkit_tpu_torch.ops.colscan
-import jtokkit_tpu_torch.ops.decode
-import jtokkit_tpu_torch.ops.gather
-import jtokkit_tpu_torch.ops.merge
-import jtokkit_tpu_torch.ops.merge_exact
-import jtokkit_tpu_torch.ops.scan
-import jtokkit_tpu_torch.scripts.profile_gather
-import jtokkit_tpu_torch.utils.corpus
+
+def fail(name):
+    raise ImportError("could not import " + name)
+
+names = [
+    m.name for m in pkgutil.walk_packages(
+        jtokkit_tpu_torch.__path__, "jtokkit_tpu_torch.", onerror=fail
+    )
+]
+for name in names:
+    importlib.import_module(name)
+print(" ".join(names))
 """
 
 
 def test_import_leaves_jax_out():
-    """The port imports neither JAX nor the JAX package (both are blocked
-    in a fresh interpreter)."""
+    """No module of the port imports JAX or the JAX package: every module
+    found by walking the package is imported in a fresh interpreter with
+    both blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CHECK], capture_output=True, text=True,
         cwd=str(pathlib.Path(__file__).resolve().parents[1]),
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split())
+    for name in (
+        "engine.device", "ops.scan", "ops.gather", "scripts.profile_gather",
+        "native", "parallel.mesh", "parallel.sharded", "cli",
+        "recipes.chatml", "entry",
+    ):
+        assert f"jtokkit_tpu_torch.{name}" in walked, name

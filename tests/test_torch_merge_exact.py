@@ -289,7 +289,8 @@ def test_engine_wide_routing_parity(monkeypatch):
     warmed count and encode passes; its plans stay off the mapped count."""
     orc, _jax, narrow = engines("cl100k_base")
     wide = DeviceEngine.from_oracle(
-        narrow.oracle, device="cpu", chunk_bytes=1 << 17, wide_min_lanes=64
+        narrow.oracle, device="cpu", chunk_bytes=1 << 17, wide_min_lanes=64,
+        native_long=False,
     )
     assert narrow.wide_min_lanes == 1 << 30 and wide.wide_min_lanes == 64
     docs = WIDE_DOCS + [" ".join(_p.decode() for _p in _cjk_pieces(21, 8))]
