@@ -54,13 +54,16 @@ Phases (each raises on failure, and then no result line is printed):
 9. Data parallel: a world-1 NCCL group (parallel.mesh.initialize_distributed
    over tcp://localhost), the ShardedTokenizer's cold and warmed count and
    encode over 16 MB english and 1 MB cjk, equal to the single engine's,
-   timed in turns with it; the all_reduce and all_gather ms; the group is
-   destroyed.
+   timed in turns with it (only the ShardedTokenizer's calls count toward
+   this path's scan launches); the all_reduce and all_gather ms; the group
+   is destroyed.
 10. CLI: python -m jtokkit_tpu_torch.cli info, encode, decode and count as
    subprocesses, started together; outputs equal the oracle's, and one run
-   without --device (its registry is on the card).
+   without --device (its registry is on the card); each subprocess reports
+   its own scan launches.
 11. Entry: jtokkit_tpu_torch.entry.entry() on the card equals the same step
-   with device="cpu".
+   with device="cpu"; entry.dryrun_multichip(1) runs the sharded count and
+   encode on one NCCL rank in a child process, against the oracle.
 12. Steady state (native_long=False): per corpus, preload_corpus, then count_tokens_corpus cold
    and warmed (the warmed passes are CUDA graph replays and end in one host
    read; totals equal the cold pass and the encode phase; the wrapper
@@ -725,7 +728,8 @@ def phase_native_routing(enc, results, card: str):
 def phase_sharded(enc, results, card: str):
     """Data parallel on the card: a world-1 NCCL group (NCCL refuses two ranks
     on one device), the sharded count and encode against the single engine,
-    timed in turns with it, and the collectives' times."""
+    timed in turns with it, and the collectives' times. The launches
+    returned are those of the ShardedTokenizer's calls alone."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -746,6 +750,14 @@ def phase_sharded(enc, results, card: str):
     scan.KERNEL_LAUNCHES = 0
     scan.PLAIN_CALLS = 0
     summary = {"world_size": tok.n_dev, "backend": dist.get_backend()}
+    launches = 0  # the sharded path's; the single engine's passes between are not
+
+    def sharded(fn):
+        nonlocal launches
+        before = scan.KERNEL_LAUNCHES
+        out = fn()
+        launches += scan.KERNEL_LAUNCHES - before
+        return out
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -758,11 +770,11 @@ def phase_sharded(enc, results, card: str):
         docs, tokens, _counts, mb = results[name][:4]
         want_total = sum(len(t) for t in tokens)
         want = [np.asarray(t, np.int32) for t in tokens]
-        plan = tok.preload_corpus(docs)
+        plan = sharded(lambda: tok.preload_corpus(docs))
         single = engine.preload_corpus(docs)
         row = {"mb": mb}
         for label, fn in (
-            ("count", lambda p: tok.count_tokens_corpus(None, plan=p)),
+            ("count", lambda p: sharded(lambda: tok.count_tokens_corpus(None, plan=p))),
             ("single_count", lambda p: engine.count_tokens_corpus(None, plan=p)),
         ):
             p = plan if label == "count" else single
@@ -774,9 +786,11 @@ def phase_sharded(enc, results, card: str):
             row[label] = {"cold_mb_s": mb / cold_s, "capture_pass_s": first_s,
                           "warm_mb_s": [mb / w[1] for w in warm]}
         for label, fn in (
-            ("encode", lambda: tok.encode_ordinary_batch_arrays(None, plan=plan)),
+            ("encode", lambda: sharded(
+                lambda: tok.encode_ordinary_batch_arrays(None, plan=plan))),
             ("single_encode", lambda: engine.encode_ordinary_batch_arrays(None, plan=single)),
-            ("encode_again", lambda: tok.encode_ordinary_batch_arrays(None, plan=plan)),
+            ("encode_again", lambda: sharded(
+                lambda: tok.encode_ordinary_batch_arrays(None, plan=plan))),
         ):
             passes = [timed(fn) for _ in range(3)]  # cold, then warmed
             for arrays, _s in passes:
@@ -792,7 +806,7 @@ def phase_sharded(enc, results, card: str):
             f"encode {' / '.join(f'{x:.2f}' for x in row['encode'] + row['encode_again'])} MB/s, "
             f"single engine {' / '.join(f'{x:.2f}' for x in row['single_encode'])}; totals and "
             f"arrays equal the single engine's [{card}]")
-    launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
+    plain = scan.PLAIN_CALLS
     if plain != 0 or launches <= 0:
         raise AssertionError(f"sharded: {launches} scan launches, {plain} plain calls")
 
@@ -817,14 +831,18 @@ def phase_sharded(enc, results, card: str):
     log(f"sharded collectives (median of 20, host clock): all_reduce of 1 int64 "
         f"{summary['all_reduce_ms']:.3f} ms, all_gather of {4 * size} bytes "
         f"{summary['all_gather_ms']:.3f} ms; the tokenizer made {tok.collectives}; "
-        f"{launches} scan kernel launches on this path; group destroyed [{card}]")
+        f"{launches} scan kernel launches in the sharded calls (the single engine's "
+        f"{scan.KERNEL_LAUNCHES - launches} apart); group destroyed [{card}]")
     return launches, summary
 
 
 def phase_cli(enc, card: str):
     """The CLI as users run it: one subprocess per subcommand, all started
     together; outputs equal the oracle's. The decode and the count run
-    without --device (the CUDA card by default)."""
+    without --device (the CUDA card by default). Each subprocess calls
+    ``cli.main`` as ``python -m jtokkit_tpu_torch.cli`` does and then prints
+    its scan launch count on its last line of standard error; returns their
+    sum."""
     from jtokkit_tpu_torch import cli
 
     text = "Hello, world! 中文 🙂 <|endoftext|> twice"
@@ -840,19 +858,28 @@ def phase_cli(enc, card: str):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     t = time.time()
+    code = ("import json, sys\n"
+            "from jtokkit_tpu_torch import cli\n"
+            "from jtokkit_tpu_torch.ops import scan\n"
+            "cli.main(sys.argv[1:])\n"
+            "print(json.dumps({'scan_launches': scan.KERNEL_LAUNCHES}), file=sys.stderr)")
     procs = {
-        k: subprocess.Popen([sys.executable, "-m", "jtokkit_tpu_torch.cli", *argv],
+        k: subprocess.Popen([sys.executable, "-c", code, *argv],
                             env=env, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
         for k, argv in runs.items()
     }
-    out = {}
+    out, launches = {}, {}
     try:
         for k, p in procs.items():
             stdout, stderr = p.communicate(timeout=300)
             if p.returncode != 0:
                 raise AssertionError(f"cli {k} exited {p.returncode}:\n{stderr[-2000:]}")
             out[k] = stdout
+            last = [x for x in stderr.splitlines() if x.startswith('{"scan_launches"')]
+            if not last:
+                raise AssertionError(f"cli {k} printed no launch count:\n{stderr[-2000:]}")
+            launches[k] = json.loads(last[-1])["scan_launches"]
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -878,13 +905,18 @@ def phase_cli(enc, card: str):
         raise AssertionError(f"the CLI's default registry is on {default}")
     log(f"cli: info, encode, decode, count and encode --encoding r50k_base as 5 "
         f"subprocesses in {seconds:.1f} s; outputs equal the oracle's; without --device "
-        f"the registry is on {default} [{card}]")
-    return {"seconds": seconds, "subcommands": sorted(runs)}
+        f"the registry is on {default}; scan kernel launches by subcommand {launches} [{card}]")
+    return sum(launches.values()), {"seconds": seconds, "subcommands": sorted(runs),
+                                    "scan_launches": launches}
 
 
 def phase_entry(card: str):
     """The entry step (``entry.entry()``) on the card against the same step
-    on the CPU."""
+    on the CPU, and ``entry.dryrun_multichip(1)``: one NCCL rank on the card
+    in a child process, which prints its scan launches. Returns the launches
+    of each."""
+    import re
+
     import numpy as np
 
     from jtokkit_tpu_torch import entry
@@ -906,7 +938,18 @@ def phase_entry(card: str):
     log(f"entry: Stage A v4 + merge_rows_t3 on the card equal the CPU step "
         f"(meta {got[0].tolist()}, {int(got[3].sum())} active ids); {launches} scan "
         f"kernel launches [{card}]")
-    return launches
+
+    t = time.time()
+    out = entry.dryrun_multichip(1, timeout=300)[0]
+    found = re.search(r"rank 0: (\d+) scan kernel launches", out)
+    if "on cuda:0" not in out or "all_gather encode ok" not in out or not found:
+        raise AssertionError(f"dryrun_multichip(1): {out[-2000:]}")
+    dry_launches = int(found.group(1))
+    if dry_launches <= 0:
+        raise AssertionError("dryrun_multichip(1) launched no scan kernel")
+    log(f"entry: dryrun_multichip(1) on one NCCL rank in {time.time() - t:.1f} s: "
+        f"count and encode equal the oracle; {dry_launches} scan kernel launches [{card}]")
+    return launches, dry_launches
 
 
 def profiled_kernels(fn):
@@ -1364,8 +1407,8 @@ def main() -> int:
         "native_routing", phase_native_routing, enc, results, card)
     native_row["build_s"] = build_s["native"]
     sharded_launches, sharded_row = phase("sharded", phase_sharded, enc, results, card)
-    cli_row = phase("cli", phase_cli, enc, card)
-    entry_launches = phase("entry", phase_entry, card)
+    cli_launches, cli_row = phase("cli", phase_cli, enc, card)
+    entry_launches, dryrun_launches = phase("entry", phase_entry, card)
     steady_launches, steady_replayed, steady_row = phase(
         "steady_state", phase_steady_state, device_merge, results, card, rows)
     if args.profile is not None:
@@ -1379,12 +1422,14 @@ def main() -> int:
         "source": "jtokkit_tpu_torch/csrc/scan.cu",
         "replaces": REPLACES_SCAN,
         "launches": (launches + decode_launches + long_launches + native_launches
-                     + sharded_launches + entry_launches + steady_launches),
+                     + sharded_launches + cli_launches + entry_launches
+                     + dryrun_launches + steady_launches),
         "launches_by_path": {"encode_count": launches, "decode": decode_launches,
                              "long_pieces": long_launches,
                              "native_routing": native_launches,
-                             "sharded": sharded_launches, "cli": 0,
+                             "sharded": sharded_launches, "cli": cli_launches,
                              "entry": entry_launches,
+                             "dryrun_multichip": dryrun_launches,
                              "steady_state": steady_launches},
         # scans inside CUDA graph replays pass through no wrapper and are in
         # no launch count above: "recorded" sums what the replayed graphs

@@ -35,16 +35,30 @@ class GptBytePairEncoding(Encoding):
             params.encoder,
             params.special_tokens_encoder,
         )
+        self._packed = None
         self._device_engine = None
         self._native_engine = None
         self._native_tried = False
-        self._device_lock = threading.Lock()
+        self._device_lock = threading.RLock()
 
     # -- engines --------------------------------------------------------
 
     @property
     def oracle(self) -> OracleEngine:
         return self._oracle
+
+    def _packed_tables(self):
+        """The packed tables, loaded once for both engines."""
+        with self._device_lock:
+            if self._packed is None:
+                from .engine.device import _maybe_asset_path
+                from .vocab.tables import load_packed
+
+                self._packed = load_packed(
+                    self._params.name, self._params.encoder,
+                    _maybe_asset_path(self._params.name),
+                )
+        return self._packed
 
     def device_engine(self):
         """The device engine for this encoding (built on first use).
@@ -59,33 +73,28 @@ class GptBytePairEncoding(Encoding):
                 if self._device_engine is None:
                     from .engine.device import DeviceEngine
 
-                    self._device_engine = DeviceEngine.from_oracle(
-                        self._oracle, device=self._device
+                    self._device_engine = DeviceEngine(
+                        self._params.name, self._params.pattern,
+                        self._packed_tables(), self._oracle, device=self._device,
                     )
         return self._device_engine
 
     def native_engine(self):
         """The C++ host engine (built on first use; a failed build raises).
 
-        Custom regex patterns and vocabularies without all 256 single bytes
-        return ``None`` and stay on the Python oracle.
+        Custom regex patterns and the vocabularies that
+        ``native.engine_for`` leaves out return ``None`` and stay on the
+        Python oracle.
         """
         if not self._native_tried:
             with self._device_lock:
                 if not self._native_tried:
-                    if self._params.pattern in BUILTIN_PATTERNS and all(
-                        bytes([b]) in self._params.encoder for b in range(256)
-                    ):
-                        from .engine.device import _maybe_asset_path
-                        from .native import NativeEngine
-                        from .vocab.tables import load_packed
+                    # a custom pattern needs no packed tables to be refused
+                    if self._params.pattern in BUILTIN_PATTERNS:
+                        from . import native
 
-                        packed = load_packed(
-                            self._params.name, self._params.encoder,
-                            _maybe_asset_path(self._params.name),
-                        )
-                        self._native_engine = NativeEngine(
-                            packed, self._params.pattern
+                        self._native_engine = native.engine_for(
+                            self._packed_tables(), self._params.pattern
                         )
                     self._native_tried = True
         return self._native_engine

@@ -205,6 +205,7 @@ class DeviceEngine:
         self.native_long = bool(native_long)
         self.native_chunks = 0
         self._native = None
+        self._native_looked_up = False
         # ids over 16 bits (cl100k) ship a 1-bit plane beside the low halves
         self._fetch_wide = packed.n_tokens > 0xFFFF
         self._capture_stream = None  # made at the first graph capture
@@ -230,15 +231,15 @@ class DeviceEngine:
                    wide_min_lanes=wide_min_lanes, native_long=native_long)
 
     def _native_engine(self):
-        """The native host engine for long-piece chunks, built on first use;
-        None when routing is off or the vocabulary lacks a single byte (the
-        facade's rule). A failed build raises."""
-        if self._native is None and self.native_long and (
-            self.packed.byte_to_id >= 0
-        ).all():
-            from ..native import NativeEngine
+        """The shared native host engine for long-piece chunks, looked up at
+        the first such chunk; None when routing is off or
+        ``native.engine_for`` leaves the vocabulary out. A failed build
+        raises."""
+        if self.native_long and not self._native_looked_up:
+            from .. import native
 
-            self._native = NativeEngine(self.packed, self.pattern)
+            self._native = native.engine_for(self.packed, self.pattern)
+            self._native_looked_up = True
         return self._native
 
     def _read(self, t: torch.Tensor) -> np.ndarray:
@@ -825,6 +826,8 @@ class DeviceEngine:
         GIL) while the fallback chunks run here; callers consume the lists in
         result order, so a document spanning device and host chunks keeps
         its token order."""
+        if all(r[0] not in ("native", "fallback") for r in results):
+            return {}
         natives = [i for i, r in enumerate(results) if r[0] == "native"]
         out = {}
         with ThreadPoolExecutor(max(1, min(len(natives), os.cpu_count() or 2))) as pool:

@@ -4,7 +4,8 @@ run. Counterpart of the root ``__graft_entry__.py``.
     from jtokkit_tpu_torch import entry
     fn, args = entry.entry()          # on the CUDA card; device="cpu" too
     fn(*args)
-    entry.dryrun_multichip(2)         # two gloo ranks on the CPU
+    entry.dryrun_multichip(1)         # one NCCL rank per CUDA card
+    entry.dryrun_multichip(2, device="cpu")  # two gloo ranks on the CPU
 """
 
 from __future__ import annotations
@@ -75,18 +76,19 @@ def entry(device=None):
     return step, example_args
 
 
-def _dryrun_rank(rank: int, n_ranks: int, port: int) -> None:
+def _dryrun_rank(rank: int, n_ranks: int, port: int, device: str) -> None:
     """One rank of :func:`dryrun_multichip` (run in a child process)."""
     import torch
     import torch.distributed as dist
 
+    from jtokkit_tpu_torch.ops import scan
     from jtokkit_tpu_torch.parallel.mesh import initialize_distributed
     from jtokkit_tpu_torch.parallel.sharded import ShardedTokenizer
 
     torch.set_num_threads(1)
-    initialize_distributed(f"tcp://localhost:{port}", n_ranks, rank, device="cpu")
+    dev = initialize_distributed(f"tcp://localhost:{port}", n_ranks, rank, device=device)
     try:
-        eng = _cl100k_device_engine("cpu", chunk_bytes=1 << 17)
+        eng = _cl100k_device_engine(dev, chunk_bytes=1 << 17)
         tok = ShardedTokenizer(eng)
         texts = [
             f"shard {i}: the quick brown fox 🦊 jumps {i * 1234567} times.\n"
@@ -96,11 +98,12 @@ def _dryrun_rank(rank: int, n_ranks: int, port: int) -> None:
         total = tok.count_tokens_corpus(texts)
         if total != sum(len(e) for e in expect):
             raise RuntimeError(f"rank {rank}: sharded count {total} differs")
-        print(f"rank {rank}: all_reduce count ok ({total})", flush=True)
+        print(f"rank {rank}: all_reduce count ok ({total}) on {dev}", flush=True)
         if tok.encode_ordinary_batch(texts) != expect:
             raise RuntimeError(f"rank {rank}: sharded encode differs from the oracle")
         print(f"rank {rank}: all_gather encode ok ({len(texts)} documents, "
               f"{eng.native_chunks} native chunks on this rank)", flush=True)
+        print(f"rank {rank}: {scan.KERNEL_LAUNCHES} scan kernel launches", flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -113,20 +116,33 @@ def _free_port() -> int:
     return port
 
 
-def dryrun_multichip(n_devices: int, timeout: float = 300) -> list:
-    """The data-parallel path over ``n_devices`` gloo ranks on the CPU, one
-    child process each, on small inputs: the sharded count (its all_reduce)
-    and encode (its all_gathers), checked against the host oracle on every
-    rank. Returns each rank's output; raises if a rank fails, and kills
-    every child on the timeout."""
+def dryrun_multichip(n_devices: int, timeout: float = 300, device=None) -> list:
+    """The data-parallel path over ``n_devices`` ranks, one child process
+    each, on small inputs: the sharded count (its all_reduce) and encode
+    (its all_gathers), checked against the host oracle on every rank.
+
+    ``device``: ``None`` means the CUDA cards, one NCCL rank per card (raises
+    without a card, or with fewer cards than ``n_devices``); ``"cpu"`` runs
+    gloo ranks on the CPU. Returns each rank's output; raises if a rank
+    fails, and kills every child on the timeout."""
+    import torch
+
+    from jtokkit_tpu_torch.engine.device import resolve_device
+
+    kind = resolve_device(device).type
+    if kind == "cuda" and n_devices > torch.cuda.device_count():
+        raise RuntimeError(
+            f"{n_devices} ranks need {n_devices} CUDA cards;"
+            f" {torch.cuda.device_count()} visible"
+        )
     port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
     code = "import sys; from jtokkit_tpu_torch.entry import _dryrun_rank; " \
-           "_dryrun_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]))"
+           "_dryrun_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])"
     procs = [
         subprocess.Popen(
-            [sys.executable, "-c", code, str(rank), str(n_devices), str(port)],
+            [sys.executable, "-c", code, str(rank), str(n_devices), str(port), kind],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True, cwd=_REPO,
         )

@@ -14,7 +14,9 @@ renamed, so processes building at once cannot tear it. A failed build raises wit
 nothing falls back quietly to the Python oracle or the device merge.
 
 The library has 16 table slots per process. Tables are immutable, so every
-engine over the same vocabulary shares one slot.
+caller gets one shared engine per (vocabulary, pattern) from
+:func:`engine_for`, which also holds the rule of which vocabularies the
+native engine serves.
 
 Build ahead of use: ``python -m jtokkit_tpu_torch.native``
 """
@@ -43,6 +45,8 @@ _lock = threading.RLock()
 _lib: Optional[ctypes.CDLL] = None
 # vocabulary fingerprint -> (slot, pinned table arrays)
 _slots: dict = {}
+# (vocabulary fingerprint, pattern) -> the shared NativeEngine
+_engines: dict = {}
 _cls_table = None  # kept alive: every slot points into it
 
 
@@ -160,6 +164,22 @@ def _slot_for(lib: ctypes.CDLL, packed) -> int:
             raise RuntimeError("native engine init failed")
         _slots[key] = (slot, refs)
         return slot
+
+
+def engine_for(packed, pattern: str) -> Optional["NativeEngine"]:
+    """The native engine for ``packed`` under ``pattern``, built on first use
+    and shared by every later caller in the process (a failed build raises).
+    None for what the native engine leaves out by design: a custom pattern,
+    or a vocabulary without all 256 single bytes."""
+    from .engine.presplit import BUILTIN_PATTERNS
+
+    if pattern not in BUILTIN_PATTERNS or not (packed.byte_to_id >= 0).all():
+        return None
+    key = (_fingerprint(packed), pattern)
+    with _lock:
+        if key not in _engines:
+            _engines[key] = NativeEngine(packed, pattern)
+        return _engines[key]
 
 
 class NativeEngine:

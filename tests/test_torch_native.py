@@ -205,6 +205,10 @@ def test_native_engines_share_a_table_slot():
     assert a._native_engine()._handle == b._native_engine()._handle
     assert enc.native_engine()._handle == a._native_engine()._handle
     assert len(native._slots) == slots
+    # one engine per (vocabulary, pattern), from the one rule in native.py
+    assert a._native_engine() is b._native_engine() is enc.native_engine()
+    assert native.engine_for(a.packed, "cl100k") is a._native_engine()
+    assert native.engine_for(a.packed, r"\S+") is None
     assert device_engine(native_long=False)._native_engine() is None
 
 
@@ -213,6 +217,7 @@ def test_failed_build_raises(monkeypatch, tmp_path, fault):
     """A build that fails raises with the compiler's output everywhere the
     native engine is asked for; nothing returns None."""
     monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_engines", {})
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
     if fault == "missing compiler":
         monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))

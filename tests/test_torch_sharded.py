@@ -162,9 +162,22 @@ def test_two_gloo_ranks_in_child_processes():
     """Two ranks, one child process each: both check the all_reduced count
     and the all_gathered encode against the host oracle; the children are
     killed if they outlast 300 s."""
-    outs = entry.dryrun_multichip(2, timeout=300)
+    outs = entry.dryrun_multichip(2, timeout=300, device="cpu")
     for rank, out in enumerate(outs):
         assert f"rank {rank}: all_reduce count ok" in out, out[-3000:]
+        assert f"rank {rank}: 0 scan kernel launches" in out, out[-3000:]
         assert f"rank {rank}: all_gather encode ok" in out, out[-3000:]
     # the CJK document is routed to the native engine on exactly one rank
     assert sum("0 native chunks" not in out for out in outs) == 1
+
+
+@pytest.mark.parametrize("cards", [None, 1])
+def test_dryrun_defaults_to_the_cards(monkeypatch, cards):
+    """Without ``device`` the dry run wants one NCCL rank per CUDA card: it
+    raises before it starts a child when there is no card, or fewer cards
+    than ranks."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards is not None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards or 0)
+    match = "none is available" if cards is None else "2 ranks need 2 CUDA cards"
+    with pytest.raises(RuntimeError, match=match):
+        entry.dryrun_multichip(2)
