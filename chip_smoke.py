@@ -64,7 +64,14 @@ Phases (each raises on failure, and then no result line is printed):
 11. Entry: jtokkit_tpu_torch.entry.entry() on the card equals the same step
    with device="cpu"; entry.dryrun_multichip(1) runs the sharded count and
    encode on one NCCL rank in a child process, against the oracle.
-12. Steady state (native_long=False): per corpus, preload_corpus, then count_tokens_corpus cold
+12. Bench: python -m jtokkit_tpu_torch.bench --mb 16 --budget 240 as a
+   subprocess (the headline line first and last, cl100k english device on
+   the card, 7 companions and none failed), every other mode of bench.run in
+   this process at 4 MB of english (equal totals; host at 0.25 MB equal to
+   device there), cli bench --mode device-count as a subprocess (its total
+   equal), run_scaling(sizes=[1]) on one NCCL rank in a child process
+   (efficiency 1.0); each subprocess reports its own scan launches.
+13. Steady state (native_long=False): per corpus, preload_corpus, then count_tokens_corpus cold
    and warmed (the warmed passes are CUDA graph replays and end in one host
    read; totals equal the cold pass and the encode phase; the wrapper
    launches no scan in them, and a torch.profiler window over one replayed
@@ -77,8 +84,12 @@ Phases (each raises on failure, and then no result line is printed):
    the packed fetch timed against an int32 fetch, the scan's clear falling
    due under a replay, and an engine with wide_min_lanes=64 over cjk and the
    wide-routing documents (tokens equal the oracle's, cold and warmed). Its
-   device traces come after every timed pass of the script.
-13. One JSON line of kernel numbers, then the last line
+   device traces come after every timed pass of the phases above.
+14. Bench count plans: the bench's engine over 16 MB of english, six plans
+   in turns of the single engine's count and the world-1 sharded one: five
+   passes each split by CUDA events around the graph replays, then one pass
+   under the bench's profiler (device ms, busy share, idle gaps).
+15. One JSON line of kernel numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or jtokkit_tpu.
@@ -89,6 +100,7 @@ from __future__ import annotations
 import argparse
 import ast
 import csv
+import functools
 import json
 import os
 import socket
@@ -836,6 +848,41 @@ def phase_sharded(enc, results, card: str):
     return launches, summary
 
 
+COUNTED = ("import json, sys\n"
+           "from jtokkit_tpu_torch import {module}\n"
+           "from jtokkit_tpu_torch.ops import scan\n"
+           "{module}.main(sys.argv[1:])\n"
+           "print(json.dumps({{'scan_launches': scan.KERNEL_LAUNCHES}}), file=sys.stderr)")
+
+
+def start_counted(module: str, argv):
+    """``python -m jtokkit_tpu_torch.<module> *argv`` as a subprocess: it calls
+    the module's ``main`` as ``-m`` does, then prints its scan launch count on
+    its last line of standard error."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-c", COUNTED.format(module=module), *argv], env=env,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_counted(name: str, p, timeout: float):
+    """(standard output, scan launches) of a :func:`start_counted` process;
+    raises if it failed, and kills it on the timeout."""
+    try:
+        stdout, stderr = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if p.returncode != 0:
+        raise AssertionError(f"{name} exited {p.returncode}:\n{stderr[-2000:]}")
+    last = [x for x in stderr.splitlines() if x.startswith('{"scan_launches"')]
+    if not last:
+        raise AssertionError(f"{name} printed no launch count:\n{stderr[-2000:]}")
+    return stdout, json.loads(last[-1])["scan_launches"]
+
+
 def phase_cli(enc, card: str):
     """The CLI as users run it: one subprocess per subcommand, all started
     together; outputs equal the oracle's. The decode and the count run
@@ -855,31 +902,12 @@ def phase_cli(enc, card: str):
         "count": ["count", "--ordinary", text],
         "encode_r50k": ["encode", "--encoding", "r50k_base", "--device", "cuda:0", "I'm 42"],
     }
-    env = dict(os.environ)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     t = time.time()
-    code = ("import json, sys\n"
-            "from jtokkit_tpu_torch import cli\n"
-            "from jtokkit_tpu_torch.ops import scan\n"
-            "cli.main(sys.argv[1:])\n"
-            "print(json.dumps({'scan_launches': scan.KERNEL_LAUNCHES}), file=sys.stderr)")
-    procs = {
-        k: subprocess.Popen([sys.executable, "-c", code, *argv],
-                            env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-        for k, argv in runs.items()
-    }
+    procs = {k: start_counted("cli", argv) for k, argv in runs.items()}
     out, launches = {}, {}
     try:
         for k, p in procs.items():
-            stdout, stderr = p.communicate(timeout=300)
-            if p.returncode != 0:
-                raise AssertionError(f"cli {k} exited {p.returncode}:\n{stderr[-2000:]}")
-            out[k] = stdout
-            last = [x for x in stderr.splitlines() if x.startswith('{"scan_launches"')]
-            if not last:
-                raise AssertionError(f"cli {k} printed no launch count:\n{stderr[-2000:]}")
-            launches[k] = json.loads(last[-1])["scan_launches"]
+            out[k], launches[k] = finish_counted(f"cli {k}", p, 300)
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -950,6 +978,222 @@ def phase_entry(card: str):
     log(f"entry: dryrun_multichip(1) on one NCCL rank in {time.time() - t:.1f} s: "
         f"count and encode equal the oracle; {dry_launches} scan kernel launches [{card}]")
     return launches, dry_launches
+
+
+BENCH_MODES = ("device-lists", "device-count", "decode", "device-decode", "native",
+               "native-mt", "sharded", "sharded-count")
+
+
+def phase_bench(card: str):
+    """The benchmark module (jtokkit_tpu_torch.bench) on the card: (a) ``python
+    -m jtokkit_tpu_torch.bench`` as users run it, its line contract and its 7
+    companions; (b) every other mode in this process at 4 MB of english (host
+    at 0.25 MB beside device); (c) ``cli bench``; (d) ``run_scaling`` on one
+    NCCL rank in a child process. Returns the scan launches of all of it
+    (the subprocesses report their own)."""
+    from jtokkit_tpu_torch import bench
+    from jtokkit_tpu_torch.ops import scan
+
+    launches, summary = {}, {}
+
+    # (a) the module as users run it: headline first, companions, headline last
+    t = time.time()
+    stdout, launches["main"] = finish_counted(
+        "bench", start_counted("bench", ["--mb", "16", "--budget", "240"]), 600)
+    lines = stdout.splitlines()
+    head, last = json.loads(lines[0]), json.loads(lines[-1])
+    if head["metric"] != "cl100k_base encode throughput (device, 1 card)":
+        raise AssertionError(f"bench headline: {head['metric']}")
+    if (last["metric"], last["value"]) != (head["metric"], head["value"]):
+        raise AssertionError("bench: the last line is not the headline")
+    companions = last["detail"].get("companions", [])
+    if len(companions) != len(bench.COMPANIONS) or any("error" in c for c in companions):
+        raise AssertionError(f"bench companions: {companions}")
+    skipped = [c["metric"] for c in companions if "skipped" in c]
+    summary["main"] = {"seconds": time.time() - t, "headline": head["value"],
+                       "tokens": head["detail"]["tokens"],
+                       "corpus_mb": head["detail"]["corpus_mb"],
+                       "companions": companions}
+    log(f"bench main: headline {head['value']} MB/s over {head['detail']['corpus_mb']} MB "
+        f"({head['detail']['tokens']} tokens, {head['detail']['card']}); companions "
+        + "; ".join(f"{c['metric']} {c.get('value', c.get('skipped'))}" for c in companions)
+        + f"; skipped by the budget: {skipped or 'none'}; {launches['main']} scan launches; "
+        f"{summary['main']['seconds']:.1f} s [{card}]")
+
+    # (b) every other mode in this process
+    scan.KERNEL_LAUNCHES = 0
+    scan.PLAIN_CALLS = 0
+    rows = {}
+
+    def run(mode, mb, **kw):
+        before, t = scan.KERNEL_LAUNCHES, time.time()
+        r = bench.run(mb=mb, mode=mode, **kw)
+        n = scan.KERNEL_LAUNCHES - before
+        log(f"bench {r['metric']}: {r['value']} MB/s over {r['detail']['corpus_mb']} MB "
+            f"english, {r['detail']['tokens']} tokens, best of {kw.get('passes', 3)} "
+            f"{r['detail']['seconds']} s, {n} scan launches; run {time.time() - t:.1f} s [{card}]")
+        rows.setdefault(mode, []).append({"mb": r["detail"]["corpus_mb"], "value": r["value"],
+                                          "tokens": r["detail"]["tokens"],
+                                          "scan_launches": n})
+        return r, n
+
+    totals = {}
+    for mode in BENCH_MODES:
+        r, n = run(mode, 4, passes=3)
+        totals[mode] = r["detail"]["tokens"]
+        if (n == 0) != mode.startswith("native"):
+            raise AssertionError(f"bench {mode}: {n} scan launches")
+    if len(set(totals.values())) != 1:
+        raise AssertionError(f"bench: totals differ across modes: {totals}")
+    host, n_host = run("host", 0.25, passes=3)
+    small, _n = run("device", 0.25, passes=3)
+    if n_host != 0 or host["detail"]["tokens"] != small["detail"]["tokens"]:
+        raise AssertionError("bench: device differs from the host oracle at 0.25 MB")
+
+    # (c) the CLI's bench
+    t = time.time()
+    stdout, launches["cli"] = finish_counted(
+        "cli bench", start_counted("cli", ["bench", "--mode", "device-count", "--mb", "4"]), 300)
+    cli_row = json.loads(stdout)
+    if cli_row["detail"]["tokens"] != totals["device-count"]:
+        raise AssertionError(f"cli bench: {cli_row['detail']['tokens']} tokens")
+    log(f"bench cli: {cli_row['metric']} {cli_row['value']} MB/s, tokens equal; "
+        f"{launches['cli']} scan launches, {time.time() - t:.1f} s [{card}]")
+
+    # (d) weak scaling on one NCCL rank in a child process
+    t = time.time()
+    (row,) = bench.run_scaling(mb_per_dev=4, sizes=[1])
+    d = row["detail"]
+    if (d["efficiency"], d["backend"], d["tokens"]) != (1.0, "nccl", totals["device-count"]):
+        raise AssertionError(f"run_scaling: {row}")
+    launches["scaling"] = d["scan_launches"]
+    summary["scaling"] = row
+    log(f"bench run_scaling(sizes=[1]): {row['value']} MB/s on {d['n_devices']} {d['backend']} "
+        f"rank ({d['device']}), efficiency {d['efficiency']}, {d['scan_launches']} scan "
+        f"launches, {time.time() - t:.1f} s [{card}]")
+
+    launches["in_process"] = scan.KERNEL_LAUNCHES
+    if scan.PLAIN_CALLS != 0:
+        raise AssertionError(f"bench: {scan.PLAIN_CALLS} scans took the plain version")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"bench: a run launched no scan kernel: {launches}")
+    summary["modes"] = rows
+    summary["scan_launches"] = launches
+    return sum(launches.values()), summary
+
+
+def replay_passes(engine, fn, n: int):
+    """``n`` passes of ``fn`` (a warmed count), each with the card's time
+    split by CUDA events recorded around every graph replay of the mapped
+    count (``engine._run_block``, wrapped for these passes only), and the
+    card's clocks and power as nvidia-smi samples them every 10 ms
+    meanwhile: per pass (host ms, ms inside the graphs, idle ms between
+    them, the median SM MHz, memory MHz and W of the samples inside the
+    pass, or None where none fell inside)."""
+    import datetime
+    import statistics
+
+    import torch
+
+    marks = []
+    real = engine._run_block
+
+    def marked(blk):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(blk)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader,nounits",
+         "-lms", "10"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    engine._run_block = marked
+    rows, windows = [], []
+    try:
+        time.sleep(0.2)  # the sampler's first lines
+        for _ in range(n):
+            marks.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            t = time.perf_counter()
+            fn()
+            host = time.perf_counter() - t
+            windows.append((t0, time.time()))
+            torch.cuda.synchronize()
+            rows.append((host * 1e3, sum(a.elapsed_time(b) for a, b in marks),
+                         sum(marks[i][1].elapsed_time(marks[i + 1][0])
+                             for i in range(len(marks) - 1))))
+        time.sleep(0.05)
+    finally:
+        del engine._run_block  # the class's method again
+        smi.terminate()
+        samples_out = smi.communicate(timeout=30)[0]
+    samples = []
+    for line in samples_out.splitlines():
+        stamp, *values = line.split(",")
+        try:
+            when = datetime.datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f")
+            samples.append((when.timestamp(), *map(float, values)))
+        except ValueError:
+            continue
+    out = []
+    for row, (lo, hi) in zip(rows, windows):
+        inside = [v[1:] for v in samples if lo <= v[0] <= hi]
+        out.append(row + (tuple(statistics.median(c) for c in zip(*inside))
+                          if inside else None,))
+    return out
+
+
+def phase_bench_profile(card: str, out_dir):
+    """The single engine's warmed count against the sharded one (world 1),
+    on the bench's engine and one 16 MB english corpus, after every timed
+    pass of the script: six plans in turns, each cold, captured, five passes
+    split by CUDA events (time inside the graph replays, idle between them),
+    then one pass under the bench's profiler (``bench.run``'s
+    ``profile_dir``): device ms, busy share, graph replays, idle gaps. The
+    traces are kept under ``out_dir/bench`` when a directory is given."""
+    import tempfile
+
+    from jtokkit_tpu_torch import bench
+    from jtokkit_tpu_torch.ops import scan
+    from jtokkit_tpu_torch.parallel.sharded import ShardedTokenizer
+
+    engine = bench._device_engine("cl100k_base")
+    docs = bench._load_corpus(16, None, "english")
+    mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
+    scan.KERNEL_LAUNCHES = 0
+    plans = []
+    with tempfile.TemporaryDirectory() as tmp, bench._data_group(engine.device):
+        where = os.path.join(out_dir, "bench") if out_dir else tmp
+        tok = ShardedTokenizer(engine)
+        for k, mode in enumerate(("device-count", "sharded-count") * 3):
+            counter = engine if mode == "device-count" else tok
+            fn = functools.partial(counter.count_tokens_corpus, None,
+                                   plan=counter.preload_corpus(docs))
+            totals = {fn(), fn()}  # the cold pass, the pass that captures
+            rows = replay_passes(engine, fn, 5)
+            detail = {}
+            with bench._profile(where, f"{mode}_{k}", engine.device, detail, engine):
+                totals.add(fn())
+            p = detail["profile"]
+            if len(totals) != 1 or p["host_reads"] != 1 or p["graph_replays"] <= 0 \
+                    or p["scan_launches"] != 0:
+                raise AssertionError(f"bench plan {k} ({mode}): totals {totals}, {p}")
+            best = min(r[0] for r in rows)
+            plans.append({"mode": mode, "mb_s": mb / best * 1e3,
+                          "passes_ms_mhz": rows, "traced": p})
+            log(f"count plan {k} ({mode}, {mb:.2f} MB english): best {mb / best * 1e3:.2f} "
+                f"MB/s; per pass host / inside the {p['graph_replays']} graphs / idle between "
+                f"them, ms (SM MHz, memory MHz, W): "
+                + ", ".join(f"{h:.2f} / {g:.2f} / {i:.3f} {c}" for h, g, i, c in rows)
+                + f"; traced pass: wall {p['wall_ms']:.2f} ms, kernels {p['device_ms']:.2f} ms "
+                f"({p['busy']:.1%} busy, {p['kernels']} kernels), device span "
+                f"{p['span_ms']:.2f} ms, largest idle gap {p['max_gap_ms']:.3f} ms, "
+                f"{p['gaps_over_0.1ms']} gaps over 0.1 ms [{card}]")
+    return scan.KERNEL_LAUNCHES, plans
 
 
 def profiled_kernels(fn):
@@ -1409,8 +1653,12 @@ def main() -> int:
     sharded_launches, sharded_row = phase("sharded", phase_sharded, enc, results, card)
     cli_launches, cli_row = phase("cli", phase_cli, enc, card)
     entry_launches, dryrun_launches = phase("entry", phase_entry, card)
+    bench_launches, bench_row = phase("bench", phase_bench, card)
     steady_launches, steady_replayed, steady_row = phase(
         "steady_state", phase_steady_state, device_merge, results, card, rows)
+    profile_launches, bench_row["count_plans"] = phase(
+        "bench_profile", phase_bench_profile, card, args.profile)
+    bench_launches += profile_launches
     if args.profile is not None:
         phase("profile", phase_profile, card, args.profile)
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -1423,13 +1671,14 @@ def main() -> int:
         "replaces": REPLACES_SCAN,
         "launches": (launches + decode_launches + long_launches + native_launches
                      + sharded_launches + cli_launches + entry_launches
-                     + dryrun_launches + steady_launches),
+                     + dryrun_launches + bench_launches + steady_launches),
         "launches_by_path": {"encode_count": launches, "decode": decode_launches,
                              "long_pieces": long_launches,
                              "native_routing": native_launches,
                              "sharded": sharded_launches, "cli": cli_launches,
                              "entry": entry_launches,
                              "dryrun_multichip": dryrun_launches,
+                             "bench": bench_launches,
                              "steady_state": steady_launches},
         # scans inside CUDA graph replays pass through no wrapper and are in
         # no launch count above: "recorded" sums what the replayed graphs
@@ -1465,7 +1714,8 @@ def main() -> int:
                for name, r in results.items()}
     log(json.dumps({"main_path": summary, "long_pieces": long_row,
                     "native_routing": native_row, "sharded": sharded_row,
-                    "cli": cli_row, "steady_state": steady_row, "card": card,
+                    "cli": cli_row, "bench": bench_row, "steady_state": steady_row,
+                    "card": card,
                     "build_s": build_s, "phase_s": phase_s,
                     "seconds": time.time() - t_start}))
     log(card)

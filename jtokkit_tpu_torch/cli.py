@@ -1,13 +1,16 @@
-"""Command-line interface: encode / decode / count / info.
+"""Command-line interface: encode / decode / count / info / bench.
 
 A copy of ``jtokkit_tpu/cli.py`` over the port. ``--device`` names the
-device of the registry's batch engines (default: the CUDA card, and without
-one the command raises; ``--device cpu`` runs on the CPU). Usage::
+device of the registry's batch engines, or of the benchmark's (default: the
+CUDA card, and without one the command raises; ``--device cpu`` runs on the
+CPU). The JAX CLI's ``bench --device`` picks a mode; here ``bench --mode``
+does (``--host`` is ``--mode host``). Usage::
 
     python -m jtokkit_tpu_torch.cli encode --encoding cl100k_base "Hello world"
     python -m jtokkit_tpu_torch.cli decode --encoding cl100k_base 9906 11 1917 0
     python -m jtokkit_tpu_torch.cli count  --encoding cl100k_base --file corpus.txt
     python -m jtokkit_tpu_torch.cli info
+    python -m jtokkit_tpu_torch.cli bench  --mb 16 --mode device-count
 """
 
 from __future__ import annotations
@@ -69,6 +72,19 @@ def cmd_info(_args) -> None:
     print(json.dumps(info, indent=2))
 
 
+def cmd_bench(args) -> None:
+    from . import bench as bench_mod
+
+    result = bench_mod.run(
+        mb=args.mb,
+        encoding=args.encoding,
+        mode=args.mode,
+        corpus=args.corpus,
+        device=args.device,
+    )
+    print(json.dumps(result))
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="jtokkit_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -101,6 +117,18 @@ def main(argv=None) -> None:
 
     pi = sub.add_parser("info", help="encodings + model table")
     pi.set_defaults(fn=cmd_info)
+
+    from .bench import MODES
+
+    pb = sub.add_parser("bench", help="throughput benchmark")
+    pb.add_argument("--mb", type=float, default=16)
+    pb.add_argument("--encoding", **enc_arg)
+    pb.add_argument("--mode", default="device", choices=MODES)
+    pb.add_argument("--host", dest="mode", action="store_const", const="host",
+                    help="the host oracle: --mode host")
+    pb.add_argument("--device", **dev_arg)
+    pb.add_argument("--corpus", default=None, help="path to a corpus file")
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -116,37 +116,23 @@ def _free_port() -> int:
     return port
 
 
-def dryrun_multichip(n_devices: int, timeout: float = 300, device=None) -> list:
-    """The data-parallel path over ``n_devices`` ranks, one child process
-    each, on small inputs: the sharded count (its all_reduce) and encode
-    (its all_gathers), checked against the host oracle on every rank.
-
-    ``device``: ``None`` means the CUDA cards, one NCCL rank per card (raises
-    without a card, or with fewer cards than ``n_devices``); ``"cpu"`` runs
-    gloo ranks on the CPU. Returns each rank's output; raises if a rank
-    fails, and kills every child on the timeout."""
-    import torch
-
-    from jtokkit_tpu_torch.engine.device import resolve_device
-
-    kind = resolve_device(device).type
-    if kind == "cuda" and n_devices > torch.cuda.device_count():
-        raise RuntimeError(
-            f"{n_devices} ranks need {n_devices} CUDA cards;"
-            f" {torch.cuda.device_count()} visible"
-        )
+def run_ranks(code: str, n_ranks: int, args, timeout: float) -> list:
+    """Run ``python -c code RANK N_RANKS PORT *args`` in ``n_ranks`` child
+    processes, one per rank, all started together from the repository with
+    it on ``PYTHONPATH`` and a free localhost port for the group. Returns
+    each rank's output (standard error merged in); raises if a rank fails,
+    and kills every child on the timeout."""
     port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
-    code = "import sys; from jtokkit_tpu_torch.entry import _dryrun_rank; " \
-           "_dryrun_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])"
     procs = [
         subprocess.Popen(
-            [sys.executable, "-c", code, str(rank), str(n_devices), str(port), kind],
+            [sys.executable, "-c", code, str(rank), str(n_ranks), str(port),
+             *map(str, args)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True, cwd=_REPO,
         )
-        for rank in range(n_devices)
+        for rank in range(n_ranks)
     ]
     outs = []
     try:
@@ -161,3 +147,33 @@ def dryrun_multichip(n_devices: int, timeout: float = 300, device=None) -> list:
         if p.returncode != 0:
             raise RuntimeError(f"rank {rank} failed:\n{out[-3000:]}")
     return outs
+
+
+def check_cards(kind: str, n_ranks: int) -> None:
+    """Raise unless there is one CUDA card for each of ``n_ranks`` NCCL
+    ranks (``kind`` is the device type the ranks run on)."""
+    import torch
+
+    if kind == "cuda" and n_ranks > torch.cuda.device_count():
+        raise RuntimeError(
+            f"{n_ranks} ranks need {n_ranks} CUDA cards;"
+            f" {torch.cuda.device_count()} visible"
+        )
+
+
+def dryrun_multichip(n_devices: int, timeout: float = 300, device=None) -> list:
+    """The data-parallel path over ``n_devices`` ranks, one child process
+    each, on small inputs: the sharded count (its all_reduce) and encode
+    (its all_gathers), checked against the host oracle on every rank.
+
+    ``device``: ``None`` means the CUDA cards, one NCCL rank per card (raises
+    without a card, or with fewer cards than ``n_devices``); ``"cpu"`` runs
+    gloo ranks on the CPU. Returns each rank's output; raises if a rank
+    fails, and kills every child on the timeout."""
+    from jtokkit_tpu_torch.engine.device import resolve_device
+
+    kind = resolve_device(device).type
+    check_cards(kind, n_devices)
+    code = "import sys; from jtokkit_tpu_torch.entry import _dryrun_rank; " \
+           "_dryrun_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])"
+    return run_ranks(code, n_devices, [kind], timeout)

@@ -229,6 +229,6 @@ def test_import_leaves_jax_out():
     for name in (
         "engine.device", "ops.scan", "ops.gather", "scripts.profile_gather",
         "native", "parallel.mesh", "parallel.sharded", "cli",
-        "recipes.chatml", "entry",
+        "recipes.chatml", "entry", "bench",
     ):
         assert f"jtokkit_tpu_torch.{name}" in walked, name
