@@ -77,14 +77,19 @@ Phases (each raises on failure, and then no result line is printed):
    launches no scan in them, and a torch.profiler window over one replayed
    pass must show exactly the scan kernel launches the graphs recorded),
    a plan of three equal chunks whose block pads with an all-zero chunk, then
-   encode_ordinary_batch_arrays over the plan cold and warmed (every array
-   equals the cold pass and the encode phase's tokens, which phase 5 held
-   against the oracle; english takes the 12-bit fetch format, cjk declines
-   it), one warmed dispatch under torch.cuda.set_sync_debug_mode("error"),
-   the packed fetch timed against an int32 fetch, the scan's clear falling
-   due under a replay, and an engine with wide_min_lanes=64 over cjk and the
-   wide-routing documents (tokens equal the oracle's, cold and warmed). Its
-   device traces come after every timed pass of the phases above.
+   encode_ordinary_batch_arrays over the plan: cold, the pass that captures
+   one CUDA graph per chunk, and three replayed passes (one host read each,
+   one replay per graph, no Stage A run and no scan launch by the wrapper;
+   every array equals the cold pass and the encode phase's tokens, which
+   phase 5 held against the oracle), the replayed and the eager cached
+   dispatch chunk by chunk, each under torch.cuda.set_sync_debug_mode
+   ("error"), the fetch formats (12-bit plane, low halves, int32) timed with
+   the pack inside graphs (jtokkit_tpu_torch.scripts.fetch_formats, english),
+   the scan's clear falling due under a replay, and an engine with
+   wide_min_lanes=64 over cjk and the wide-routing documents (tokens equal
+   the oracle's, cold and warmed). Its device traces (one replayed count and
+   one replayed encode per plan: scan kernel launches equal the graphs'
+   recordings) come after every timed pass of the phases above.
 14. Bench count plans: the bench's engine over 16 MB of english, six plans
    in turns of the single engine's count and the world-1 sharded one: five
    passes each split by CUDA events around the graph replays, then one pass
@@ -236,8 +241,9 @@ def phase_kernel(scan):
         (("max", "max"), 1 << 18, False),          # masked_rows stitch
         (("max", "max"), 1 << 15, False),          # masked_positions, ascii
         (("max", "max"), 1 << 17, False),          # masked_positions, unicode
-        # the 12-bit fetch's escape side stream (masked_positions at its
-        # capacity, a power of two from 1,024 up)
+        # the 12-bit plane's escape side stream, which the steady phase's
+        # fetch-format study times (masked_positions at its capacity, a
+        # power of two from 1,024 up)
         (("max", "max"), 1 << 10, False),
         (("max", "max"), 1 << 11, False),
         (("max", "max"), 1 << 12, False),
@@ -1213,17 +1219,18 @@ def profiled_kernels(fn):
     return out, scans, sum(e.count for e in device)
 
 
-def phase_steady_state(engine, results, card: str, scan_rows):
+def phase_steady_state(engine, results, card: str):
     """The steady-state path over warmed corpus plans, at full width, on the
-    native_long=False engine: the corpus-mapped count as graph replays, the
-    cached dispatch with the packed inline fetch, and the wide-bucket engine.
-    ``scan_rows``: the shapes at which the scan kernel was held against its
-    plain version."""
+    native_long=False engine: the corpus-mapped count and the warmed encode
+    as graph replays, the eager cached dispatch beside the replayed one, the
+    fetch formats timed with the pack inside graphs, and the wide-bucket
+    engine."""
     import numpy as np
     import torch
 
-    from jtokkit_tpu_torch.engine.device import CorpusPlan, DeviceEngine, _next_pow2
+    from jtokkit_tpu_torch.engine.device import CorpusPlan, DeviceEngine
     from jtokkit_tpu_torch.ops import merge, scan
+    from jtokkit_tpu_torch.scripts import fetch_formats
 
     dev = engine.device
     scan.KERNEL_LAUNCHES = 0
@@ -1232,8 +1239,6 @@ def phase_steady_state(engine, results, card: str, scan_rows):
     summary = {}
     plans = {}
     profiled_scans = 0  # scan kernel launches seen in the replayed windows
-    stitch_checked = {r["n"] for r in scan_rows
-                      if r["kinds"] == ["max", "max"] and not r["reverse"]}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1303,95 +1308,89 @@ def phase_steady_state(engine, results, card: str, scan_rows):
             f"{len(blocks)} replays, no launch by the scan wrapper; the graphs recorded "
             f"{recorded} scans and {rounds} merge rounds) [{card}]")
 
-        # ---- encode: cold (metas + packed fetch), three warmed (inline fetch)
-        formats0 = dict(engine.fetch_formats)
+        # ---- encode: cold (metas + packed fetch), the pass that captures one
+        # graph per chunk, three replayed passes (one wait each)
         c0 = counters()
         cold_arrays, enc_cold_s = timed(
             lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
         enc_cold_reads = delta(c0)[0]
-        if plan.n_tokens is None or plan.doc_counts is None or plan.esc_counts is None:
+        if plan.n_tokens is None or plan.doc_counts is None or plan.encode_graphs is not None:
             raise AssertionError(f"{name}: the first encode pass did not fill the plan")
         if [a.tolist() for a in cold_arrays] != tokens:
             raise AssertionError(f"{name}: plan encode differs from the encode phase")
+        c0 = counters()
+        captured, enc_capture_s = timed(
+            lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
+        capture_reads, capture_launches = delta(c0)[:2]
+        graphs = plan.encode_graphs
+        if not graphs or len(graphs) != len(plan) or any(g.graph is None for g in graphs):
+            raise AssertionError(f"{name}: the capture pass made no graph per chunk")
+        enc_recorded = sum(g.n_scans for g in graphs)
+        enc_rounds = sum(g.n_rounds for g in graphs)
+        if enc_recorded != 5 * len(graphs):
+            raise AssertionError(
+                f"{name}: the encode graphs recorded {enc_recorded} scans for {len(graphs)} chunks")
+        if capture_reads != 1 or not all(
+                np.array_equal(a, b) for a, b in zip(captured, cold_arrays)):
+            raise AssertionError(f"{name}: the capture pass differs or read back")
         enc_warm_s = []
         for _ in range(3):
             c0 = counters()
             arrays, s = timed(lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
-            reads, launches, _rounds, runs = delta(c0)[:4]
+            reads, launches, eager_rounds, runs, replayed, replays = delta(c0)
             enc_warm_s.append(s)
             if reads != 1:
                 raise AssertionError(f"{name}: {reads} host reads in a warmed encode pass")
+            if (launches, eager_rounds, runs) != (0, 0, 0):
+                raise AssertionError(
+                    f"{name}: a replayed encode ran eagerly: {launches} scan launches of "
+                    f"the wrapper, {eager_rounds} merge rounds, {runs} Stage A runs")
+            if replays != len(graphs) or replayed != enc_recorded:
+                raise AssertionError(
+                    f"{name}: {replays} replays of {len(graphs)} encode graphs, {replayed} scans")
             if len(arrays) != len(cold_arrays) or not all(
                     np.array_equal(a, b) for a, b in zip(arrays, cold_arrays)):
                 raise AssertionError(f"{name}: warmed encode differs from the cold pass")
-        p12_keys = [k for k in plan.pinned if k[1] == "p12"]
-        n_p12 = len(p12_keys)
-        if launches != 5 * runs + sum(1 for k in p12_keys if k[3] > 0):
-            raise AssertionError(
-                f"{name}: {launches} scan launches in a warmed encode of {runs} chunks "
-                f"with {n_p12} 12-bit fetches")
-        took = {k: engine.fetch_formats[k] - formats0[k] for k in formats0}
-        if took != {"p12": 3 * n_p12, "lo": len(plan) + 3 * (len(plan) - n_p12)}:
-            raise AssertionError(f"{name}: fetch formats {took} for {n_p12} 12-bit chunks")
-        # the escape side streams' capacities: each is a scan shape of this path
-        ecaps = sorted({k[3] for k in p12_keys if k[3] > 0})
-        if not set(ecaps) <= stitch_checked:
-            raise AssertionError(
-                f"{name}: escape capacities {ecaps} not among the scan shapes held "
-                f"against the plain version {sorted(stitch_checked)}")
-        if name == "english" and n_p12 == 0:
-            raise AssertionError("no english chunk took the 12-bit format")
-        if name == "cjk" and n_p12 == len(plan):
-            raise AssertionError("no cjk chunk declined the 12-bit format")
 
-        # ---- one warmed dispatch with every synchronising call an error
-        reads = engine.host_reads
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            res = engine._process_chunks_cached(plan, want_tokens=True)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        if engine.host_reads != reads or not all(len(r) == 6 for r in res):
-            raise AssertionError(f"{name}: the cached dispatch read back before its fetch")
-        engine._wait_fetches()
-        for k, r in enumerate(res):
-            got = engine._consume_fetch(r[5], plan.n_tokens[k])
-            if int(r[3]) != plan.n_tokens[k] or not np.array_equal(
-                    got, r[2][: plan.n_tokens[k]].cpu().numpy()):
-                raise AssertionError(f"{name}: chunk {k}'s fetch differs from its tokens")
+        # ---- the replayed and the eager cached dispatch, each with every
+        # synchronising call an error, chunk by chunk
+        def dispatched(fn):
+            reads = engine.host_reads
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = fn(plan, True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if engine.host_reads != reads or not all(len(r) == 6 for r in res):
+                raise AssertionError(f"{name}: the cached dispatch read back before its fetch")
+            engine._wait_fetches()
+            return [(engine._consume_fetch(r[5], n), r[2][:n].cpu().numpy(), int(r[3]))
+                    for r, n in zip(res, plan.n_tokens)]
 
-        # ---- the packed fetch against a plain int32 fetch of the same prefixes
-        toks = [r[2] for r in res]
-        pads = [min(_next_pow2(n, 8192), t.shape[0]) for n, t in zip(plan.n_tokens, toks)]
-        plain = [torch.empty(p, dtype=torch.int32, pin_memory=True) for p in pads]
-
-        def fetch_packed():
-            for k, t in enumerate(toks):
-                engine._start_fetch(plan.pinned, k, t, plan.n_tokens[k], plan.esc_counts[k])
-
-        def fetch_int32():
-            for b, t, p in zip(plain, toks, pads):
-                b.copy_(t[:p], non_blocking=True)
-
-        fetch_ms = {}
-        for label, fn in (("packed", fetch_packed), ("int32", fetch_int32)):
-            fn()
-            fetch_ms[label] = min(timed(fn)[1] for _ in range(3)) * 1e3
-        p12_chunks = {k[0] for k in p12_keys}
-        packed_bytes = sum(
-            b.numel() * b.element_size()
-            for key, bufs in plan.pinned.items()
-            if key[1] == "p12" or key[0] not in p12_chunks  # the format a warmed pass takes
-            for b in bufs if b is not None
-        )
+        replay_ids = dispatched(engine._process_chunks_cached)
+        eager_ids = dispatched(engine._dispatch_eager)
+        for k, ((rf, rt, rn), (ef, et, en)) in enumerate(zip(replay_ids, eager_ids)):
+            if not (rn == en == plan.n_tokens[k] and np.array_equal(rf, rt)
+                    and np.array_equal(rf, ef) and np.array_equal(ef, et)):
+                raise AssertionError(f"{name}: chunk {k}'s replay differs from the eager dispatch")
+        summary_fetch = ""
+        if name == "english":
+            # ROADMAP item 19: the fetch formats with the pack inside graphs
+            formats = fetch_formats.measure(engine, plan)
+            summary_fetch = "; fetch formats (device ms a pass, host ms): " + ", ".join(
+                f"{f} {formats[f]['device_ms']:.3f} / {min(formats[f]['host_ms']):.2f} "
+                f"({formats[f]['bytes']} bytes)" for f in fetch_formats.FORMATS
+            ) + (f", the reference's rule would take the 12-bit plane for "
+                 f"{formats['rule_p12_chunks']} of {formats['chunks']} chunks")
         log(f"steady encode {name}: cold {mb / enc_cold_s:.2f} MB/s ({enc_cold_reads} host "
-            f"reads); warmed {' / '.join(f'{mb / s:.2f}' for s in enc_warm_s)} MB/s (1 host "
-            f"read, 0 before the fetch, {launches} scan launches a pass); {n_p12} of "
-            f"{len(plan)} chunks in the 12-bit format (escape capacities {ecaps}, each a "
-            f"max,max scan shape checked above); fetch of all chunks packed "
-            f"{fetch_ms['packed']:.2f} ms ({packed_bytes} bytes) against int32 "
-            f"{fetch_ms['int32']:.2f} ms ({4 * sum(pads)} bytes); dispatch passed under "
-            f"set_sync_debug_mode('error') [{card}]")
+            f"reads); capture pass {enc_capture_s:.2f} s ({len(graphs)} graphs, capture "
+            f"{plan.encode_capture_seconds:.2f} s, pool {plan.encode_pool_bytes} bytes, "
+            f"{capture_launches} scan launches in its eager warm-up); replayed "
+            f"{' / '.join(f'{mb / s:.2f}' for s in enc_warm_s)} MB/s (1 host read, "
+            f"{len(graphs)} replays, no launch by the scan wrapper, no Stage A run; the graphs "
+            f"recorded {enc_recorded} scans and {enc_rounds} merge rounds); ids equal the "
+            f"eager cached dispatch chunk by chunk, both dispatches passed under "
+            f"set_sync_debug_mode('error'){summary_fetch} [{card}]")
         summary[name] = {
             "mb": mb, "chunks": len(plan), "graphs": len(blocks),
             "count_cold_mb_s": mb / cold_s, "count_warm_mb_s": [mb / s for s in warm_s],
@@ -1399,12 +1398,18 @@ def phase_steady_state(engine, results, card: str, scan_rows):
             "capture_s": plan.capture_seconds, "graph_pool_bytes": plan.graph_pool_bytes,
             "scans_recorded_per_count_pass": recorded,
             "merge_rounds_recorded_per_count_pass": rounds,
-            "scan_launches_per_warm_encode": launches, "escape_capacities": ecaps,
             "encode_cold_mb_s": mb / enc_cold_s,
+            "encode_capture_pass_s": enc_capture_s,
+            "encode_graphs": len(graphs),
+            "encode_capture_s": plan.encode_capture_seconds,
+            "encode_pool_bytes": plan.encode_pool_bytes,
             "encode_warm_mb_s": [mb / s for s in enc_warm_s],
-            "encode_cold_host_reads": enc_cold_reads, "p12_chunks": n_p12,
-            "fetch_packed_ms": fetch_ms["packed"], "fetch_int32_ms": fetch_ms["int32"],
+            "scans_recorded_per_encode_pass": enc_recorded,
+            "merge_rounds_recorded_per_encode_pass": enc_rounds,
+            "encode_cold_host_reads": enc_cold_reads,
         }
+        if name == "english":
+            summary[name]["fetch_formats"] = formats
 
     # the scan's clear of its status words, due under a replay
     entry = scan.SCRATCH[(torch.cuda.current_device(), engine._capture_stream.cuda_stream)]
@@ -1475,8 +1480,9 @@ def phase_steady_state(engine, results, card: str, scan_rows):
                 np.array_equal(a, b) for a, b in zip(arrays, cold_arrays)):
             raise AssertionError("wide engine: warmed cjk encode differs or read back")
     total, wide_count_s = timed(lambda: wide.count_tokens_corpus(None, plan=plan))
-    if total != sum(len(t) for t in tokens) or plan.mapped_count is not None:
-        raise AssertionError("wide engine: cjk count differs, or the plan was mapped")
+    if total != sum(len(t) for t in tokens) or plan.mapped_count is not None \
+            or plan.encode_graphs is not None:
+        raise AssertionError("wide engine: cjk count differs, or the plan was captured")
     narrow = summary["cjk"]
     log(f"wide engine (wide_min_lanes=64, native_long=False) cjk {mb:.2f} MB: encode cold {mb / wide_cold_s:.2f} "
         f"MB/s ({wide_rounds} merge rounds), warmed "
@@ -1527,9 +1533,26 @@ def phase_steady_state(engine, results, card: str, scan_rows):
         summary[name]["kernels_traced_per_count_pass"] = pass_kernels
         log(f"replayed count {name}: the device trace of one pass shows {seen} scan kernel "
             f"launches = the {recorded} its graphs recorded, {pass_kernels} kernels in all")
+        if plan.encode_graphs is None:
+            continue
+        recorded = sum(g.n_scans for g in plan.encode_graphs)
+        launches0 = scan.KERNEL_LAUNCHES
+        arrays, seen, pass_kernels = profiled_kernels(
+            lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
+        if [a.tolist() for a in arrays] != results[name][1] or seen != recorded \
+                or scan.KERNEL_LAUNCHES != launches0:
+            raise AssertionError(
+                f"{name}: the device trace of a replayed encode shows {seen} scan kernel "
+                f"launches, the graphs recorded {recorded}")
+        profiled_scans += seen
+        summary[name]["scan_kernels_traced_per_encode_pass"] = seen
+        summary[name]["kernels_traced_per_encode_pass"] = pass_kernels
+        log(f"replayed encode {name}: the device trace of one pass shows {seen} scan kernel "
+            f"launches = the {recorded} its {len(plan.encode_graphs)} graphs recorded, "
+            f"{pass_kernels} kernels in all; ids equal the encode phase's")
     replayed = scan.REPLAYED_SCANS
     log(f"steady state: {launches} scan kernel launches by the wrapper (cold passes, "
-        f"warm-ups before capture, warmed encodes), {replayed} more scans inside graph "
+        f"warm-ups before capture, eager dispatches), {replayed} more scans inside graph "
         f"replays by the graphs' recordings, of which {profiled_scans} were counted in "
         f"device traces of one pass per plan; 0 plain scan calls")
     return launches, {"recorded": replayed, "profiled": profiled_scans}, summary
@@ -1537,8 +1560,8 @@ def phase_steady_state(engine, results, card: str, scan_rows):
 
 def phase_profile(card: str, out_dir: str):
     """Profiler windows over 2 MB of english: the cold encode, a warmed
-    encode over a plan (cached dispatch, packed inline fetch) and a warmed
-    count (graph replays)."""
+    encode over a plan (one graph replay per chunk, the copies of the
+    packed tokens after each) and a warmed count (graph replays)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1550,14 +1573,16 @@ def phase_profile(card: str, out_dir: str):
     docs = corpus.generate(2, seed=1, flavor="english")
     enc.encode_ordinary_batch(docs)
     plan = engine.preload_corpus(docs)
-    for _ in range(2):  # cold pass, then the pass that captures or caches
+    for _ in range(2):  # cold passes, then the passes that capture
         engine.count_tokens_corpus(None, plan=plan)
         engine.encode_ordinary_batch_arrays(None, plan=plan)
     torch.cuda.synchronize()
     blocks = plan.mapped_count
-    log(f"profile plan: {len(plan)} chunks in {len(blocks)} graphs, "
+    log(f"profile plan: {len(plan)} chunks; count in {len(blocks)} graphs, "
         f"{sum(len(b.bufs) for b in blocks)} chunk slots, "
-        f"{sum(b.n_scans for b in blocks)} scans recorded")
+        f"{sum(b.n_scans for b in blocks)} scans recorded; encode in "
+        f"{len(plan.encode_graphs)} graphs, {sum(g.n_scans for g in plan.encode_graphs)} "
+        f"scans recorded")
 
     def window(label, fn):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1655,7 +1680,7 @@ def main() -> int:
     entry_launches, dryrun_launches = phase("entry", phase_entry, card)
     bench_launches, bench_row = phase("bench", phase_bench, card)
     steady_launches, steady_replayed, steady_row = phase(
-        "steady_state", phase_steady_state, device_merge, results, card, rows)
+        "steady_state", phase_steady_state, device_merge, results, card)
     profile_launches, bench_row["count_plans"] = phase(
         "bench_profile", phase_bench_profile, card, args.profile)
     bench_launches += profile_launches

@@ -31,20 +31,27 @@ methods). Per batch (documents -> token ids):
 6. Host sync 2: ONE fetch of every chunk's token count and document counts,
    then every chunk's live token prefix, packed to 2 bytes a token (plus a
    1-bit plane where ids need a 17th bit), copied into pinned host memory
-   without blocking, and ONE wait before the first is consumed.
+   without blocking, and ONE wait before the first is consumed. (The
+   reference also ships a 12-bit plane where it is smaller; on this port's
+   card its pack and unpack cost more than the bytes it saves, so the port
+   has none.)
 
 Steady state (``plan = preload_corpus(texts)``, then the batch methods with
 ``plan=plan``): the first pass over a plan is the cold pass above and leaves
 its routing, bucket capacities and merge round counts in the plan
-(``chunk_cache``); the first encode pass adds the token, document and escape
-counts. Later passes dispatch every chunk's stages back to back from the
-cache with no host read between the first launch and the fetch
+(``chunk_cache``); the first encode pass adds the token and document counts.
+Later passes dispatch every chunk's stages back to back from the cache with
+no host read between the first launch and the fetch
 (:meth:`DeviceEngine._process_chunks_cached`); the token copies start inside
-the dispatch loop, in the 12-bit format where it is smaller.
+the dispatch. Once the first encode pass has cached the token and document
+counts, the next one captures each ok-chunk's body (Stage A, merges, Stage
+C, pack) as ONE CUDA graph, and every later encode pass is one replay per
+chunk, each followed by its chunk's copies, and one wait (the counterpart
+of the reference's jitted per-stage programs).
 ``count_tokens_corpus`` over a warmed plan runs the corpus-mapped count:
 blocks of up to 8 chunks, each ONE CUDA graph captured once per plan and
-replayed per pass (the same body runs eagerly on a CPU device), and one
-scalar fetch. All cached values derive from the plan's immutable buffers, so
+replayed per pass, and one scalar fetch. On a CPU device both bodies run
+eagerly. All cached values derive from the plan's immutable buffers, so
 reuse is exact; tokens are computed from the bytes on every pass.
 ``host_reads`` counts every fetch of device data.
 
@@ -70,7 +77,6 @@ from ..ops import (
     boundaries, classify, decode as decode_ops, merge, merge_exact, pipeline,
     scan, stage4,
 )
-from ..ops.classify import take_clip
 from ..vocab import tables as vtables
 from ..vocab.loader import asset_path
 from .oracle import OracleEngine, byte_pair_merge
@@ -134,10 +140,11 @@ class CorpusPlan(list):
     mapped_count = None  # list[CountBlock] of the corpus-mapped count
     n_tokens = None      # list[int] per ok-chunk live token count
     doc_counts = None    # list[np.ndarray] per ok-chunk per-doc counts
-    esc_counts = None    # list[int] per ok-chunk count of ids >= 4094 (the
-    #                      12-bit packed-fetch decision)
     capture_seconds = 0.0   # spent capturing mapped_count's graphs
     graph_pool_bytes = 0    # device memory the graphs' shared pool reserved
+    encode_graphs = None    # list[EncodeGraph] per ok-chunk of the warmed encode
+    encode_capture_seconds = 0.0  # spent capturing encode_graphs
+    encode_pool_bytes = 0         # device memory their shared pool reserved
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -146,17 +153,41 @@ class CorpusPlan(list):
         self.pinned = {}
 
 
-class CountBlock:
-    """Up to 8 chunks of one shape counted as one unit: on CUDA one captured
-    graph whose replay leaves the block's token total in ``out``."""
+class _Captured:
+    """A unit of work that runs as one CUDA graph on CUDA: ``out`` holds the
+    graph's outputs, which every replay overwrites."""
 
-    def __init__(self, variant, divs, sig, bufs, des, n_live):
-        self.variant, self.divs, self.sig = variant, divs, sig
-        self.bufs, self.des, self.n_live = bufs, des, n_live
+    def __init__(self):
         self.graph = None
         self.out = None
         self.n_scans = 0    # scan calls recorded in the graph
         self.n_rounds = 0   # merge rounds recorded in the graph
+
+
+class CountBlock(_Captured):
+    """Up to 8 chunks of one shape counted as one unit: on CUDA one captured
+    graph whose replay leaves the block's token total in ``out``."""
+
+    def __init__(self, variant, divs, sig, bufs, des, n_live):
+        super().__init__()
+        self.variant, self.divs, self.sig = variant, divs, sig
+        self.bufs, self.des, self.n_live = bufs, des, n_live
+
+
+class EncodeGraph(_Captured):
+    """One ok-chunk of a warmed plan's encode (ok-chunk ``oki``, cache entry
+    ``c``) as one captured graph: Stage A, the merges at their cached
+    rounds, Stage C and the pack. A replay leaves (tokens, n_tokens, None,
+    packed fetch) in ``out``, device tensors that the next replay
+    overwrites. The copies of the packed arrays into the plan's pinned
+    buffers (one or two a chunk) are issued after the replay, outside the
+    graph: once graphs whose captured copies wrote pinned buffers had been
+    freed with those buffers (as a dropped plan frees them), the next
+    capture failed in the host allocator's cache flush (torch 2.11)."""
+
+    def __init__(self, oki, c, buf_dev, de_dev):
+        super().__init__()
+        self.oki, self.c, self.buf_dev, self.de_dev = oki, c, buf_dev, de_dev
 
 
 class DeviceEngine:
@@ -213,9 +244,6 @@ class DeviceEngine:
         # merge rounds inside a replay pass through no Python and are in no
         # counter (a block's n_scans and n_rounds say what it recorded)
         self.graph_replays = 0
-        # token fetches started, by format ("p12": the 12-bit plane, "lo":
-        # 16-bit low halves and the bit plane)
-        self.fetch_formats = {"p12": 0, "lo": 0}
 
     @classmethod
     def from_oracle(cls, oracle: OracleEngine, *, device=None,
@@ -418,40 +446,78 @@ class DeviceEngine:
             )
         return tokens, n_tokens, doc_counts, ran
 
+    def _chunk_body(self, plan: CorpusPlan, oki: int, c, buf_dev, de_dev,
+                    want_tokens: bool):
+        """One ok-chunk of the steady state (ok-chunk ``oki`` of a warmed
+        plan, cache entry ``c``, device buffers ``buf_dev`` and ``de_dev``),
+        with no host read: Stage A, the merges at the cached rounds, Stage C
+        and, once the plan caches the token counts, the pack for the fetch.
+        The warmed encode on CUDA records it as one graph per chunk
+        (:class:`EncodeGraph`); elsewhere it runs eagerly.
+
+        Returns (tokens or None, n_tokens, doc_counts or None[, packed
+        fetch (:meth:`_pack_fetch`)]), all on the device: the copies to the
+        host are the caller's (:meth:`_copy_fetch`), never inside a capture.
+        """
+        table, _meta = self._stage_a(c["variant"], c["divs"], buf_dev, de_dev)
+        # per-doc counts are plan-stable: dispatched only until the first
+        # encode pass has fetched and cached them
+        tokens, n_tokens, doc_counts, _ran = self._stages_b_c(
+            buf_dev, de_dev, table, c["caps"], c["rounds"], want_tokens,
+            want_tokens and plan.doc_counts is None,
+        )
+        out = (tokens, n_tokens, doc_counts)
+        if want_tokens and plan.n_tokens is not None:
+            out += (self._pack_fetch(tokens, plan.n_tokens[oki]),)
+        return out
+
     def _process_chunks_cached(self, plan: CorpusPlan, want_tokens: bool):
         """Steady-state pipeline: every chunk's stages dispatched back to
         back from the plan's cached routing, capacities and round counts,
         with no host read at all.
 
         With cached token counts the pack and the device-to-host copy of each
-        chunk's tokens are enqueued INSIDE this loop, right after the chunk's
-        scatters, so the copies run beside the later chunks' kernels. ok
-        results then carry a sixth entry, the fetch in flight.
+        chunk's tokens are issued inside the dispatch, right after the
+        chunk's scatters, so the copies run beside the later chunks' kernels.
+        ok results then carry a sixth entry, the fetch in flight.
+
+        On CUDA, an encode over a plan whose caches are complete (routing,
+        token and document counts) is one graph replay per ok-chunk
+        (:meth:`_encode_graphs`); the results' device tensors are then the
+        graphs' outputs, valid until the plan's next encode pass. Plans with
+        a wide bucket (:meth:`_uses_wide`) keep the eager dispatch, as their
+        count does.
         """
+        if not (want_tokens and self._replays_encode(plan)):
+            return self._dispatch_eager(plan, want_tokens)
+        graphs = iter(self._encode_graphs(plan))
         results = []
-        inline_fetch = want_tokens and plan.n_tokens is not None
+        for (buf, doc_ends, parts, *_dev), c in zip(plan, plan.chunk_cache):
+            if c["kind"] != "ok":
+                self._count_route(c["kind"])
+                results.append((c["kind"], buf, doc_ends, parts))
+                continue
+            g = next(graphs)
+            *out, packed = self._replay(g)
+            results.append(("ok", parts, *out, self._copy_fetch(plan.pinned, g.oki, packed)))
+        return results
+
+    def _dispatch_eager(self, plan: CorpusPlan, want_tokens: bool):
+        """The cached dispatch with every op issued eagerly: the body of
+        each ok-chunk (:meth:`_chunk_body`), in plan order."""
+        results = []
         oki = 0
-        for (buf, doc_ends, parts, _ascii, buf_dev, de_dev), c in zip(
+        for (buf, doc_ends, parts, _a, buf_dev, de_dev), c in zip(
             plan, plan.chunk_cache
         ):
             if c["kind"] != "ok":
                 self._count_route(c["kind"])
                 results.append((c["kind"], buf, doc_ends, parts))
                 continue
-            table, _meta = self._stage_a(c["variant"], c["divs"], buf_dev, de_dev)
-            # per-doc counts are plan-stable: dispatched only until the
-            # first encode pass has fetched and cached them
-            tokens, n_tokens, doc_counts, _ran = self._stages_b_c(
-                buf_dev, de_dev, table, c["caps"], c["rounds"], want_tokens,
-                want_tokens and plan.doc_counts is None,
-            )
-            res = ("ok", parts, tokens, n_tokens, doc_counts)
-            if inline_fetch:
-                ec = plan.esc_counts[oki] if plan.esc_counts is not None else None
-                res += (self._start_fetch(
-                    plan.pinned, oki, tokens, plan.n_tokens[oki], ec
-                ),)
-            results.append(res)
+            out = self._chunk_body(plan, oki, c, buf_dev, de_dev, want_tokens)
+            if len(out) > 3:
+                out = out[:3] + (self._copy_fetch(plan.pinned, oki, out[3]),)
+            results.append(("ok", parts) + out)
             oki += 1
         return results
 
@@ -561,30 +627,6 @@ class DeviceEngine:
         t = tokens[:pad]
         return self._low_halves(t), (self._bit_plane(t) if self._fetch_wide else None)
 
-    def _pack12(self, tokens, pad: int, ecap: int):
-        """12-bit packed prefix: ids 0..4093 go as their own code, two codes
-        per 3 bytes; code 4094 marks an escape, whose full id rides a side
-        stream of ``ecap`` slots in the (lo, hi) format, in stream order.
-        Most english cl100k ids are below 4094 (low ranks are the frequent
-        tokens), so the plane is 1.5 bytes a token against 2.125.
-
-        Returns (plane uint8[pad * 3 // 2], lo or None, hi or None).
-        """
-        t = tokens[:pad]
-        esc = t >= 4094
-        c = torch.where(esc, 4094, t).reshape(-1, 2)
-        c0, c1 = c[:, 0], c[:, 1]
-        plane = torch.stack(
-            [c0 & 0xFF, (c0 >> 8) | ((c1 & 0xF) << 4), c1 >> 4], dim=1
-        ).to(torch.uint8).reshape(-1)
-        if ecap == 0:
-            return plane, None, None
-        pos = stage4.masked_positions(esc, ecap, pad)
-        vals = take_clip(t, torch.clamp(pos, max=pad - 1))
-        return plane, self._low_halves(vals), (
-            self._bit_plane(vals) if self._fetch_wide else None
-        )
-
     def _to_host(self, pinned: dict, key, arrays):
         """Start the copies of device ``arrays`` (None entries pass through)
         into pinned host buffers kept under ``key``, without blocking; the
@@ -610,71 +652,41 @@ class DeviceEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _start_fetch(self, pinned: dict, oki: int, tokens, n_tokens: int, esc):
-        """Pack ok-chunk ``oki``'s live token prefix and start its copy to
-        the host. ``esc`` is the chunk's count of ids >= 4094 where known
-        (a warmed plan), which decides the format.
-
-        Returns (lo, hi) or ("p12", pad, esc, plane, lo, hi), host tensors
-        that hold their data after :meth:`_wait_fetches`.
-        """
+    def _pack_fetch(self, tokens, n_tokens: int):
+        """A chunk's live token prefix packed for its fetch: None for a chunk
+        without tokens, else (pad, (lo, hi)) of :meth:`_slice_tokens` at the
+        quantized length ``pad``."""
         if not n_tokens:
-            return (None, None)
+            return None
         pad = min(_next_pow2(n_tokens, 8192), tokens.shape[0])
-        if esc is not None:
-            ecap = _next_pow2(esc, 1024) if esc else 0
-            # the 12-bit plane pays when its bytes (1.5 pad + 2.125 ecap)
-            # beat the 2-or-2.125 bytes a token of the direct format
-            if ecap * 17 < pad * 4:
-                self.fetch_formats["p12"] += 1
-                return ("p12", pad, esc, *self._to_host(
-                    pinned, (oki, "p12", pad, ecap), self._pack12(tokens, pad, ecap)
-                ))
-        self.fetch_formats["lo"] += 1
-        return tuple(self._to_host(
-            pinned, (oki, "lo", pad), self._slice_tokens(tokens, pad)
-        ))
+        return pad, self._slice_tokens(tokens, pad)
+
+    def _copy_fetch(self, pinned: dict, oki: int, packed):
+        """Start the copies of ok-chunk ``oki``'s :meth:`_pack_fetch` result
+        into its pinned buffers. Returns (lo, hi), host tensors that hold
+        their data after :meth:`_wait_fetches` (None, None without tokens).
+        """
+        if packed is None:
+            return (None, None)
+        pad, arrays = packed
+        return tuple(self._to_host(pinned, (oki, pad), arrays))
 
     @staticmethod
     def _consume_fetch(fetch, n_tokens: int) -> np.ndarray:
-        """One chunk's token ids from its fetched arrays (host tensors or
-        numpy arrays).
-
-        ``fetch`` is either (lo, hi), 16-bit low halves plus the optional
-        17th-bit plane, or ("p12", pad, esc_count, plane, lo, hi): the
-        12-bit plane (codes 0..4093 direct, 4094 = escape) with the escapes'
-        full ids on the side stream, consumed in stream order.
-        """
+        """One chunk's token ids from its fetched (lo, hi): 16-bit low halves
+        plus the optional 17th-bit plane (host tensors or numpy arrays)."""
         def host(a):
             return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
-        def ids(lo, hi, n):
-            vals = host(lo).view(np.uint16)[:n].astype(np.int32)
-            if hi is not None:
-                vals |= np.unpackbits(
-                    host(hi), bitorder="little"
-                )[:n].astype(np.int32) << 16
-            return vals
-
-        if isinstance(fetch[0], str):
-            _tag, _pad, ec, plane, lo, hi = fetch
-            b = host(plane).reshape(-1, 3).astype(np.uint16)
-            c0 = b[:, 0] | ((b[:, 1] & 0xF) << 8)
-            c1 = (b[:, 1] >> 4) | (b[:, 2] << 4)
-            tokens = np.stack([c0, c1], axis=1).reshape(-1)[:n_tokens].astype(np.int32)
-            if ec:
-                # the pad region of the tokens buffer is zero (the scatters
-                # write into zeros and drop the rest), so no position past
-                # n_tokens reads as an escape, and masked_positions yields
-                # ascending positions: the side stream's first len(esc_idx)
-                # values are the in-range escapes in order
-                esc_idx = np.flatnonzero(tokens == 4094)
-                tokens[esc_idx] = ids(lo, hi, ec)[: len(esc_idx)]
-            return tokens
         lo, hi = fetch
         if lo is None:
             return np.zeros((0,), np.int32)
-        return ids(lo, hi, n_tokens)
+        vals = host(lo).view(np.uint16)[:n_tokens].astype(np.int32)
+        if hi is not None:
+            vals |= np.unpackbits(
+                host(hi), bitorder="little"
+            )[:n_tokens].astype(np.int32) << 16
+        return vals
 
     # ------------------------------------------------------------------
     # long-piece fallback: boundaries and bucket merges on the device,
@@ -858,7 +870,8 @@ class DeviceEngine:
         packed and copied to pinned host memory without blocking, and ONE
         wait precedes the first consume. Over a warmed :class:`CorpusPlan`
         the counts are cached and the copies were started inside the
-        dispatch loop, so the wait is the pass's only host read.
+        dispatch (on CUDA, right after each chunk's graph replay), so the
+        wait is the pass's only host read.
         """
         if texts is None and plan is None:
             return []
@@ -894,15 +907,12 @@ class DeviceEngine:
         pinned = plan.pinned if is_plan else {}
         fetches = [
             r[5] if len(r) > 5
-            else self._start_fetch(pinned, k, r[2], n_tokens[k], None)
+            else self._copy_fetch(pinned, k, self._pack_fetch(r[2], n_tokens[k]))
             for k, r in enumerate(ok)
         ]
         host = self._run_host_chunks(results)
         if ok:
             self._wait_fetches()
-        # first encode pass over a plan: record per-chunk escape counts (the
-        # 12-bit packed-fetch decision of later passes)
-        new_esc = [] if is_plan and plan.esc_counts is None else None
         oki = 0
         for ri, res in enumerate(results):
             if res[0] != "ok":
@@ -911,14 +921,10 @@ class DeviceEngine:
                 continue
             parts = res[1]
             tokens = self._consume_fetch(fetches[oki], n_tokens[oki])
-            if new_esc is not None:
-                new_esc.append(int(np.count_nonzero(tokens >= 4094)))
             splits = np.cumsum(doc_counts[oki][: len(parts)])[:-1]
             for doc_idx, toks in zip(parts, np.split(tokens, splits)):
                 parts_out[doc_idx].append(toks)
             oki += 1
-        if new_esc is not None:
-            plan.esc_counts = new_esc
         empty = np.zeros((0,), np.int32)
         return [
             ps[0] if len(ps) == 1
@@ -1039,25 +1045,11 @@ class DeviceEngine:
         return blocks
 
     def _capture_blocks(self, plan: CorpusPlan, blocks) -> None:
-        """Capture every block of a plan as one ``torch.cuda.CUDAGraph``, all
-        into one shared memory pool. The plan's device buffers are the
-        graphs' inputs where they lie (immutable and resident), so a replay
-        copies nothing in. A capture that fails raises.
-
-        Before the captures, one chunk of every shape (signature, flat size
-        and document slots) runs eagerly on the capture stream, with one
-        merge round a bucket: that makes the scan
-        kernel's scratch for that stream at its full size (the scratch must
-        not be made during a capture; it lives in ``scan.SCRATCH`` as long
-        as the process) and loads every kernel the body launches.
-        """
-        dev = self.device
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
-        stream = self._capture_stream
-        t0 = time.time()
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        """Capture every block of the mapped count as one graph
+        (:meth:`_capture`). Before the captures, one chunk of every shape
+        (signature, flat size and document slots) runs eagerly with one
+        merge round a bucket."""
+        def warm():
             shapes = {
                 (b.variant, b.divs, b.sig, b.bufs[0].shape[0], b.des[0].shape[0]): b
                 for b in blocks
@@ -1065,26 +1057,66 @@ class DeviceEngine:
             for blk in shapes.values():
                 once = tuple((b, lanes, cap, min(r, 1)) for b, lanes, cap, r in blk.sig)
                 self._count_body(blk.variant, blk.divs, once, blk.bufs[0], blk.des[0])
+
+        plan.capture_seconds, plan.graph_pool_bytes = self._capture(
+            warm, blocks, self._block_sum
+        )
+
+    def _capture(self, warm, units, record):
+        """Capture ``record(unit)`` for every unit as one
+        ``torch.cuda.CUDAGraph``, whose outputs become ``unit.out``, all on
+        the engine's capture stream and into one shared memory pool. The
+        plan's device buffers are the graphs' inputs where they lie
+        (immutable and resident), so a replay copies nothing in. A capture
+        that fails raises.
+
+        ``warm()`` runs first, eagerly on the capture stream: it must make
+        the scan kernel's scratch for that stream at its full size (the
+        scratch must not be made during a capture; it lives in
+        ``scan.SCRATCH`` as long as the process) and load every kernel the
+        recording launches. What a recording adds to the engine's counters
+        (Stage A runs, merge rounds) was recorded, not run: the counters are
+        restored, and the unit keeps its scans and rounds.
+
+        Returns (seconds spent, bytes the pool reserved).
+        """
+        if not units:
+            return 0.0, 0
+        dev = self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        stream = self._capture_stream
+        t0 = time.time()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            warm()
         stream.synchronize()
         # entering a capture empties the allocator's cache; done here first,
         # what is reserved from now on is the graphs' pool
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
-        for blk in blocks:
+        for u in units:
             scans, rounds = scan.CAPTURED_CALLS, merge.MERGE_ROUNDS
             runs = self.stage_a_runs
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=pool, stream=stream):
-                blk.out = self._block_sum(blk)
-            blk.graph = graph
-            blk.n_scans = scan.CAPTURED_CALLS - scans
-            blk.n_rounds = merge.MERGE_ROUNDS - rounds
+                u.out = record(u)
+            u.graph = graph
+            u.n_scans = scan.CAPTURED_CALLS - scans
+            u.n_rounds = merge.MERGE_ROUNDS - rounds
             # recorded, not run
             self.stage_a_runs = runs
             merge.MERGE_ROUNDS = rounds
-        plan.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        plan.capture_seconds = time.time() - t0
+        return time.time() - t0, torch.cuda.memory_reserved(dev) - reserved
+
+    def _replay(self, unit: _Captured):
+        """Replay a unit's graph on the current stream; returns its outputs.
+        The scans it recorded are accounted first (``scan.count_replay``)."""
+        scan.count_replay(self.device, self._capture_stream.cuda_stream, unit.n_scans)
+        unit.graph.replay()
+        self.graph_replays += 1
+        return unit.out
 
     def _run_block(self, blk: CountBlock):
         """The block's token total (0-d tensor): a graph replay on CUDA, the
@@ -1093,10 +1125,33 @@ class DeviceEngine:
             if self.device.type == "cuda":
                 raise RuntimeError("a block of the mapped count has no graph")
             return self._block_sum(blk)
-        scan.count_replay(self.device, self._capture_stream.cuda_stream, blk.n_scans)
-        blk.graph.replay()
-        self.graph_replays += 1
-        return blk.out
+        return self._replay(blk)
+
+    def _replays_encode(self, plan: CorpusPlan) -> bool:
+        """Whether the plan's encode runs as graph replays: on CUDA, once
+        every cache of the plan is set, unless a bucket is wide."""
+        return (
+            self.device.type == "cuda" and plan.n_tokens is not None
+            and plan.doc_counts is not None
+            and not self._uses_wide(plan)
+        )
+
+    def _encode_graphs(self, plan: CorpusPlan):
+        """The plan's encode graphs, one per ok-chunk, captured at the first
+        call: the eager cached dispatch runs once on the capture stream
+        first (the scan scratch at every shape of the body, and each chunk's
+        pinned buffers, which the copies after every replay reuse), then
+        each chunk's body is recorded."""
+        if plan.encode_graphs is None:
+            ok = [(e, c) for e, c in zip(plan, plan.chunk_cache) if c["kind"] == "ok"]
+            units = [EncodeGraph(k, c, e[4], e[5]) for k, (e, c) in enumerate(ok)]
+            plan.encode_capture_seconds, plan.encode_pool_bytes = self._capture(
+                lambda: self._dispatch_eager(plan, True),
+                units,
+                lambda u: self._chunk_body(plan, u.oki, u.c, u.buf_dev, u.de_dev, True),
+            )
+            plan.encode_graphs = units
+        return plan.encode_graphs
 
     def _uses_wide(self, plan: CorpusPlan) -> bool:
         return any(

@@ -62,7 +62,6 @@ def test_plan_cache_steady_state():
     # first encode pass fills n_tokens/doc_counts; the second reuses them
     got1 = port.encode_ordinary_batch_arrays(None, plan=plan)
     assert plan.n_tokens is not None and plan.doc_counts is not None
-    assert plan.esc_counts is not None
     got2 = port.encode_ordinary_batch_arrays(None, plan=plan)
     assert _lists(got1) == expect
     assert _lists(got2) == expect
@@ -130,7 +129,7 @@ def test_count_tokens_corpus_matches_jax_and_oracle():
 
 def test_warmed_plan_matches_jax():
     """The warmed plan's cached values equal the JAX engine's, chunk for
-    chunk: routing, capacities, token, document and escape counts."""
+    chunk: routing, capacities, token and document counts."""
     _orc, jax_eng, port = engines("cl100k_base")
     docs = _corpus_docs(overflow=False)
     jax_plan = jax_eng.preload_corpus(docs)
@@ -145,7 +144,6 @@ def test_warmed_plan_matches_jax():
         assert c["caps"] == [tuple(int(x) for x in cap) for cap in cj["caps"]]
         assert len(c["rounds"]) == len(c["caps"])
     assert plan.n_tokens == jax_plan.n_tokens
-    assert plan.esc_counts == jax_plan.esc_counts
     assert len(plan.doc_counts) == len(jax_plan.doc_counts)
     for d, dj in zip(plan.doc_counts, jax_plan.doc_counts):
         np.testing.assert_array_equal(d, dj)
