@@ -53,10 +53,13 @@ Phases (each raises on failure, and then no result line is printed):
    expected rows.
 9. Data parallel: a world-1 NCCL group (parallel.mesh.initialize_distributed
    over tcp://localhost), the ShardedTokenizer's cold and warmed count and
-   encode over 16 MB english and 1 MB cjk, equal to the single engine's,
-   timed in turns with it (only the ShardedTokenizer's calls count toward
-   this path's scan launches); the all_reduce and all_gather ms; the group
-   is destroyed.
+   encode over 16 MB english and 1 MB cjk, equal to the single engine's;
+   its first encode gathers the layout, the second captures the rank's
+   encode graphs, and four warmed passes in turns with the single engine's
+   each make 1 host read, 1 all_gather (of the bytes logged) and no
+   all_reduce (only the ShardedTokenizer's calls count toward this path's
+   scan launches); the all_reduce and all_gather ms; the group is
+   destroyed.
 10. CLI: python -m jtokkit_tpu_torch.cli info, encode, decode and count as
    subprocesses, started together; outputs equal the oracle's, and one run
    without --device (its registry is on the card); each subprocess reports
@@ -86,11 +89,17 @@ Phases (each raises on failure, and then no result line is printed):
    ("error"), the fetch formats (12-bit plane, low halves, int32) timed with
    the pack inside graphs (jtokkit_tpu_torch.scripts.fetch_formats, english),
    the scan's clear falling due under a replay, and an engine with
-   wide_min_lanes=64 over cjk and the wide-routing documents (tokens equal
-   the oracle's, cold and warmed). Its device traces (one replayed count and
-   one replayed encode per plan: scan kernel launches equal the graphs'
-   recordings) come after every timed pass of the phases above.
-14. Bench count plans: the bench's engine over 16 MB of english, six plans
+   wide_min_lanes=64 over the wide-routing documents (tokens equal the
+   oracle's, cold, captured and replayed) and over cjk as graph replays:
+   the capture pass, three replayed encodes and, after the count's capture
+   pass, three replayed counts, each 1 host read and one replay per graph
+   with no scan launch by the wrapper and no merge round; the replays equal
+   the eager dispatch chunk by chunk, both under set_sync_debug_mode
+   ("error"); capture seconds and pool bytes beside the narrow plan's. Its
+   device traces (one replayed count and one replayed encode per plan, the
+   wide cjk plan too: scan kernel launches equal the graphs' recordings)
+   come after every timed pass of the phases above.
+14. Bench count plans: the bench's engine over 16 MB of english, four plans
    in turns of the single engine's count and the world-1 sharded one: five
    passes each split by CUDA events around the graph replays, then one pass
    under the bench's profiler (device ms, busy share, idle gaps).
@@ -139,6 +148,18 @@ def make_leaves(kinds, n, gen):
             keep = torch.rand(n, generator=gen, device="cuda") < 0.1
             out.append(torch.where(keep, idx, -1))
     return out
+
+
+def timed(fn):
+    """(fn's result, seconds by the host clock between two synchronisations
+    of the card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t
 
 
 def same(got, want):
@@ -777,13 +798,6 @@ def phase_sharded(enc, results, card: str):
         launches += scan.KERNEL_LAUNCHES - before
         return out
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.time() - t
-
     for name in ("english", "cjk"):
         docs, tokens, _counts, mb = results[name][:4]
         want_total = sum(len(t) for t in tokens)
@@ -803,33 +817,68 @@ def phase_sharded(enc, results, card: str):
                 raise AssertionError(f"sharded {name}: {label} differs from the encode phase")
             row[label] = {"cold_mb_s": mb / cold_s, "capture_pass_s": first_s,
                           "warm_mb_s": [mb / w[1] for w in warm]}
-        for label, fn in (
-            ("encode", lambda: sharded(
-                lambda: tok.encode_ordinary_batch_arrays(None, plan=plan))),
-            ("single_encode", lambda: engine.encode_ordinary_batch_arrays(None, plan=single)),
-            ("encode_again", lambda: sharded(
-                lambda: tok.encode_ordinary_batch_arrays(None, plan=plan))),
-        ):
-            passes = [timed(fn) for _ in range(3)]  # cold, then warmed
-            for arrays, _s in passes:
+        # encode: two passes over each plan (the sharded one's first gathers
+        # the layout, its second captures the rank's encode graphs), then
+        # warmed passes in turns, sharded first; each warmed sharded pass is
+        # 1 host read and 1 all_gather, with no all_reduce
+        def sharded_encode():
+            return sharded(lambda: tok.encode_ordinary_batch_arrays(None, plan=plan))
+
+        def single_encode():
+            return engine.encode_ordinary_batch_arrays(None, plan=single)
+
+        warmup = {}
+        for label, fn in (("encode", sharded_encode), ("single_encode", single_encode)):
+            warmup[label] = []
+            for _ in range(2):
+                arrays, sec = timed(fn)
+                warmup[label].append(mb / sec)
                 if len(arrays) != len(want) or any(
                         not np.array_equal(a, w) for a, w in zip(arrays, want)):
                     raise AssertionError(f"sharded {name}: {label} differs from the encode phase")
-            row[label] = [mb / p[1] for p in passes]
+        turns = {"encode": [], "single_encode": []}
+        for _ in range(4):
+            for label, fn in (("encode", sharded_encode), ("single_encode", single_encode)):
+                reads, coll = engine.host_reads, dict(tok.collectives)
+                arrays, sec = timed(fn)
+                turns[label].append(mb / sec)
+                if len(arrays) != len(want) or any(
+                        not np.array_equal(a, w) for a, w in zip(arrays, want)):
+                    raise AssertionError(f"sharded {name}: warmed {label} differs from the "
+                                         f"encode phase")
+                made = {k: tok.collectives[k] - coll[k] for k in coll}
+                if label == "encode" and (engine.host_reads - reads != 1 or made != {
+                        "all_reduce": 0, "all_gather": 1}):
+                    raise AssertionError(
+                        f"sharded {name}: a warmed {label} pass made "
+                        f"{engine.host_reads - reads} host reads and collectives {made}")
+        row["encode_warmup_mb_s"] = warmup["encode"]
+        row["single_encode_warmup_mb_s"] = warmup["single_encode"]
+        row["encode_mb_s"] = turns["encode"]
+        row["single_encode_mb_s"] = turns["single_encode"]
+        row["gathered_bytes"] = plan.recv.numel() * plan.recv.element_size()
+        row["encode_graphs"] = len(plan.plan.encode_graphs or [])
+        row["routed_chunks"] = sum(c["kind"] != "ok" for c in plan.plan.chunk_cache)
         summary[name] = row
         c, sc = row["count"], row["single_count"]
         log(f"sharded {name} {mb:.2f} MB, world 1 (NCCL): count cold {c['cold_mb_s']:.2f}, "
             f"warmed {' / '.join(f'{x:.2f}' for x in c['warm_mb_s'])} MB/s; single engine "
             f"cold {sc['cold_mb_s']:.2f}, warmed {' / '.join(f'{x:.2f}' for x in sc['warm_mb_s'])}; "
-            f"encode {' / '.join(f'{x:.2f}' for x in row['encode'] + row['encode_again'])} MB/s, "
-            f"single engine {' / '.join(f'{x:.2f}' for x in row['single_encode'])}; totals and "
+            f"encode first two passes {' / '.join(f'{x:.2f}' for x in warmup['encode'])} "
+            f"(single {' / '.join(f'{x:.2f}' for x in warmup['single_encode'])}), warmed in "
+            f"turns sharded / single: "
+            + ", ".join(f"{a:.2f} / {b:.2f}" for a, b in zip(turns["encode"],
+                                                             turns["single_encode"]))
+            + f" MB/s; each warmed sharded pass 1 host read, 1 all_gather of "
+            f"{row['gathered_bytes']} bytes, 0 all_reduce ({row['encode_graphs']} encode "
+            f"graphs, {row['routed_chunks']} host-routed chunks on the rank); totals and "
             f"arrays equal the single engine's [{card}]")
     plain = scan.PLAIN_CALLS
     if plain != 0 or launches <= 0:
         raise AssertionError(f"sharded: {launches} scan launches, {plain} plain calls")
 
     # the collectives alone, at this path's shapes: the count's one int64
-    # and the english encode's gathered payload (counts + tokens, int32)
+    # and the english encode's gathered tokens (int32)
     def coll_ms(fn, n=20):
         times = []
         for _ in range(n):
@@ -838,7 +887,7 @@ def phase_sharded(enc, results, card: str):
         return sorted(times)[n // 2]
 
     one = torch.ones(1, dtype=torch.int64, device=dev)
-    size = len(results["english"][1]) + sum(len(t) for t in results["english"][1])
+    size = sum(len(t) for t in results["english"][1])
     payload = torch.zeros(size, dtype=torch.int32, device=dev)
     gathered = [torch.empty_like(payload)]
     summary["all_reduce_ms"] = coll_ms(lambda: dist.all_reduce(one))
@@ -1156,7 +1205,7 @@ def replay_passes(engine, fn, n: int):
 def phase_bench_profile(card: str, out_dir):
     """The single engine's warmed count against the sharded one (world 1),
     on the bench's engine and one 16 MB english corpus, after every timed
-    pass of the script: six plans in turns, each cold, captured, five passes
+    pass of the script: four plans in turns, each cold, captured, five passes
     split by CUDA events (time inside the graph replays, idle between them),
     then one pass under the bench's profiler (``bench.run``'s
     ``profile_dir``): device ms, busy share, graph replays, idle gaps. The
@@ -1175,7 +1224,7 @@ def phase_bench_profile(card: str, out_dir):
     with tempfile.TemporaryDirectory() as tmp, bench._data_group(engine.device):
         where = os.path.join(out_dir, "bench") if out_dir else tmp
         tok = ShardedTokenizer(engine)
-        for k, mode in enumerate(("device-count", "sharded-count") * 3):
+        for k, mode in enumerate(("device-count", "sharded-count") * 2):
             counter = engine if mode == "device-count" else tok
             fn = functools.partial(counter.count_tokens_corpus, None,
                                    plan=counter.preload_corpus(docs))
@@ -1219,6 +1268,129 @@ def profiled_kernels(fn):
     return out, scans, sum(e.count for e in device)
 
 
+def wide_graphs(wide, result, narrow: dict, card: str):
+    """The wide engine (``wide_min_lanes=64``, native_long=False) over the
+    cjk corpus as graph replays: the cold encode, the pass that captures one
+    encode graph per chunk, three replayed encodes, the count's capture
+    pass and three replayed counts. Each replayed pass makes 1 host read and
+    one replay per graph, with no scan launch by the wrapper, no merge
+    round and no Stage A run; the ids equal the encode phase's and, chunk by
+    chunk, the eager cached dispatch's, both dispatches under
+    ``set_sync_debug_mode("error")``. Returns the summary, the plan under
+    ``"plan"``."""
+    import numpy as np
+    import torch
+
+    from jtokkit_tpu_torch.ops import merge, scan
+
+    docs, tokens, _counts, mb = result[:4]
+    want_total = sum(len(t) for t in tokens)
+
+    def counters():
+        return (wide.host_reads, wide.graph_replays, scan.KERNEL_LAUNCHES,
+                merge.MERGE_ROUNDS, wide.stage_a_runs)
+
+    def replayed(fn, units, what, check):
+        """MB/s of three passes of ``fn``, each checked as a replayed pass
+        (``check`` holds its result)."""
+        rates = []
+        for k in range(3):
+            before = counters()
+            out, sec = timed(fn)
+            rates.append(mb / sec)
+            made = [a - b for a, b in zip(counters(), before)]
+            if made != [1, len(units), 0, 0, 0] or not check(out):
+                raise AssertionError(
+                    f"wide engine: replayed {what} pass {k} made (host reads, replays, "
+                    f"scan launches, merge rounds, Stage A runs) {made} over "
+                    f"{len(units)} graphs, or its result differs")
+        return rates
+
+    plan = wide.preload_corpus(docs)
+    rounds0 = merge.MERGE_ROUNDS
+    cold, cold_s = timed(lambda: wide.encode_ordinary_batch_arrays(None, plan=plan))
+    cold_rounds = merge.MERGE_ROUNDS - rounds0
+    if [a.tolist() for a in cold] != tokens:
+        raise AssertionError("wide engine: cjk tokens differ from the encode phase")
+    ok = [c for c in plan.chunk_cache if c["kind"] == "ok"]
+    wide_buckets = sum(lanes >= 64 for c in ok for _b, lanes, _cap, _n in c["caps"])
+    if len(ok) != len(plan) or not wide_buckets:
+        raise AssertionError(f"wide engine: {len(ok)} of {len(plan)} chunks on the device, "
+                             f"{wide_buckets} wide buckets")
+    captured, capture_s = timed(lambda: wide.encode_ordinary_batch_arrays(None, plan=plan))
+    graphs = plan.encode_graphs
+    if not graphs or len(graphs) != len(ok) or any(g.graph is None for g in graphs):
+        raise AssertionError("wide engine: the capture pass made no graph per chunk")
+    if any(g.n_scans != 5 for g in graphs) or not all(
+            np.array_equal(a, b) for a, b in zip(captured, cold)):
+        raise AssertionError("wide engine: the capture pass differs or recorded "
+                             f"{[g.n_scans for g in graphs]} scans")
+    enc_rates = replayed(
+        lambda: wide.encode_ordinary_batch_arrays(None, plan=plan), graphs, "encode",
+        lambda arrays: all(np.array_equal(a, b) for a, b in zip(arrays, cold)))
+
+    # the replayed and the eager cached dispatch, chunk by chunk, each with
+    # every synchronising call an error
+    def dispatched(fn):
+        reads = wide.host_reads
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = fn(plan, True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if wide.host_reads != reads or not all(len(r) == 6 for r in res):
+            raise AssertionError("wide engine: the cached dispatch read back")
+        wide._wait_fetches()
+        return [wide._consume_fetch(r[5], n) for r, n in zip(res, plan.n_tokens)]
+
+    replay_ids = dispatched(wide._process_chunks_cached)
+    eager_ids = dispatched(wide._dispatch_eager)
+    for k, (g, n, r, e) in enumerate(zip(graphs, plan.n_tokens, replay_ids, eager_ids)):
+        if not (np.array_equal(r, e) and np.array_equal(g.out[0][:n].cpu().numpy(), e)):
+            raise AssertionError(f"wide engine: chunk {k}'s replay differs from the eager "
+                                 f"dispatch")
+
+    total, count_capture_s = timed(lambda: wide.count_tokens_corpus(None, plan=plan))
+    blocks = plan.mapped_count
+    if total != want_total or not blocks or any(b.graph is None for b in blocks):
+        raise AssertionError(f"wide engine: count {total} ({want_total}) or no graphs")
+    if [(b.n_live, len(b.bufs)) for b in blocks] != [(1, 1)] * len(ok):
+        raise AssertionError("wide engine: the count's blocks are not one chunk each")
+    count_rates = replayed(lambda: wide.count_tokens_corpus(None, plan=plan), blocks,
+                           "count", lambda total: total == want_total)
+    out = {
+        "mb": mb, "chunks": len(plan), "wide_buckets": wide_buckets,
+        "encode_cold_mb_s": mb / cold_s, "merge_rounds_cold": cold_rounds,
+        "encode_capture_pass_s": capture_s,
+        "encode_capture_s": plan.encode_capture_seconds,
+        "encode_pool_bytes": plan.encode_pool_bytes,
+        "encode_warm_mb_s": enc_rates,
+        "encode_rounds_recorded": sum(g.n_rounds for g in graphs),
+        "count_capture_pass_s": count_capture_s, "capture_s": plan.capture_seconds,
+        "graph_pool_bytes": plan.graph_pool_bytes, "count_warm_mb_s": count_rates,
+        "count_rounds_recorded": sum(b.n_rounds for b in blocks),
+    }
+    log(f"wide engine (wide_min_lanes=64, native_long=False) cjk {mb:.2f} MB, {len(plan)} "
+        f"chunks, {wide_buckets} wide buckets: encode cold {mb / cold_s:.2f} MB/s "
+        f"({cold_rounds} merge rounds); capture pass {capture_s:.2f} s ({len(graphs)} "
+        f"graphs, capture {plan.encode_capture_seconds:.2f} s, pool "
+        f"{plan.encode_pool_bytes} bytes, {out['encode_rounds_recorded']} merge rounds "
+        f"recorded); replayed {' / '.join(f'{x:.2f}' for x in enc_rates)} MB/s; count "
+        f"capture pass {count_capture_s:.2f} s ({len(blocks)} graphs, capture "
+        f"{plan.capture_seconds:.2f} s, pool {plan.graph_pool_bytes} bytes), replayed "
+        f"{' / '.join(f'{x:.2f}' for x in count_rates)} MB/s; each replayed pass 1 host "
+        f"read, one replay per graph, 0 scan launches by the wrapper, 0 merge rounds, 0 "
+        f"Stage A runs; ids equal the encode phase's and the eager dispatch chunk by chunk "
+        f"under set_sync_debug_mode('error'). Narrow engine on the same corpus: encode "
+        f"capture {narrow['encode_capture_s']:.2f} s, pool {narrow['encode_pool_bytes']} "
+        f"bytes, replayed {' / '.join(f'{x:.2f}' for x in narrow['encode_warm_mb_s'])} "
+        f"MB/s; count capture {narrow['capture_s']:.2f} s, pool "
+        f"{narrow['graph_pool_bytes']} bytes, replayed "
+        f"{' / '.join(f'{x:.2f}' for x in narrow['count_warm_mb_s'])} MB/s [{card}]")
+    out["plan"] = plan
+    return out
+
+
 def phase_steady_state(engine, results, card: str):
     """The steady-state path over warmed corpus plans, at full width, on the
     native_long=False engine: the corpus-mapped count and the warmed encode
@@ -1239,13 +1411,6 @@ def phase_steady_state(engine, results, card: str):
     summary = {}
     plans = {}
     profiled_scans = 0  # scan kernel launches seen in the replayed windows
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.time() - t
 
     def counters():
         return (engine.host_reads, scan.KERNEL_LAUNCHES, merge.MERGE_ROUNDS,
@@ -1464,37 +1629,8 @@ def phase_steady_state(engine, results, card: str):
             raise AssertionError(f"wide engine: pass {k} over the four documents differs")
         if wide.count_tokens_corpus(None, plan=small) != sum(len(w) for w in want):
             raise AssertionError(f"wide engine: count pass {k} over the four documents")
-    docs, tokens, _counts, mb = results["cjk"][:4]
-    plan = wide.preload_corpus(docs)
-    rounds0 = merge.MERGE_ROUNDS
-    cold_arrays, wide_cold_s = timed(lambda: wide.encode_ordinary_batch_arrays(None, plan=plan))
-    wide_rounds = merge.MERGE_ROUNDS - rounds0
-    if [a.tolist() for a in cold_arrays] != tokens:
-        raise AssertionError("wide engine: cjk tokens differ from the encode phase")
-    wide_warm_s = []
-    for _ in range(3):
-        reads = wide.host_reads
-        arrays, s = timed(lambda: wide.encode_ordinary_batch_arrays(None, plan=plan))
-        wide_warm_s.append(s)
-        if wide.host_reads - reads != 1 or not all(
-                np.array_equal(a, b) for a, b in zip(arrays, cold_arrays)):
-            raise AssertionError("wide engine: warmed cjk encode differs or read back")
-    total, wide_count_s = timed(lambda: wide.count_tokens_corpus(None, plan=plan))
-    if total != sum(len(t) for t in tokens) or plan.mapped_count is not None \
-            or plan.encode_graphs is not None:
-        raise AssertionError("wide engine: cjk count differs, or the plan was captured")
-    narrow = summary["cjk"]
-    log(f"wide engine (wide_min_lanes=64, native_long=False) cjk {mb:.2f} MB: encode cold {mb / wide_cold_s:.2f} "
-        f"MB/s ({wide_rounds} merge rounds), warmed "
-        f"{' / '.join(f'{mb / s:.2f}' for s in wide_warm_s)} MB/s, warmed count (staged) "
-        f"{mb / wide_count_s:.2f} MB/s; narrow: encode cold {narrow['encode_cold_mb_s']:.2f}, "
-        f"warmed {' / '.join(f'{x:.2f}' for x in narrow['encode_warm_mb_s'])} MB/s "
-        f"({narrow['count_cold_rounds']} merge rounds); tokens equal the oracle's on the "
-        f"four wide-routing documents and the encode phase's on cjk [{card}]")
-    summary["cjk_wide"] = {
-        "encode_cold_mb_s": mb / wide_cold_s, "encode_warm_mb_s": [mb / s for s in wide_warm_s],
-        "count_warm_mb_s": mb / wide_count_s, "merge_rounds": wide_rounds,
-    }
+    summary["cjk_wide"] = wide_graphs(wide, results["cjk"], summary["cjk"], card)
+    plans["cjk_wide"] = summary["cjk_wide"].pop("plan")
     launches, plain_calls = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
     replayed = scan.REPLAYED_SCANS
     if plain_calls != 0 or launches <= 0 or replayed <= 0:
@@ -1520,10 +1656,12 @@ def phase_steady_state(engine, results, card: str):
     # been attached to the process)
     want_totals = {name: sum(len(t) for t in results[name][1]) for name in results}
     want_totals["padded"] = want_total
+    want_totals["cjk_wide"] = want_totals["cjk"]
     for name, plan in plans.items():
+        eng = wide if name == "cjk_wide" else engine
         recorded = sum(b.n_scans for b in plan.mapped_count)
         total, seen, pass_kernels = profiled_kernels(
-            lambda: engine.count_tokens_corpus(None, plan=plan))
+            lambda: eng.count_tokens_corpus(None, plan=plan))
         if total != want_totals[name] or seen != recorded:
             raise AssertionError(
                 f"{name}: the device trace of a replayed pass shows {seen} scan kernel "
@@ -1538,8 +1676,8 @@ def phase_steady_state(engine, results, card: str):
         recorded = sum(g.n_scans for g in plan.encode_graphs)
         launches0 = scan.KERNEL_LAUNCHES
         arrays, seen, pass_kernels = profiled_kernels(
-            lambda: engine.encode_ordinary_batch_arrays(None, plan=plan))
-        if [a.tolist() for a in arrays] != results[name][1] or seen != recorded \
+            lambda: eng.encode_ordinary_batch_arrays(None, plan=plan))
+        if [a.tolist() for a in arrays] != results[name.removesuffix("_wide")][1] or seen != recorded \
                 or scan.KERNEL_LAUNCHES != launches0:
             raise AssertionError(
                 f"{name}: the device trace of a replayed encode shows {seen} scan kernel "

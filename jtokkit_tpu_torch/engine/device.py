@@ -48,11 +48,14 @@ counts, the next one captures each ok-chunk's body (Stage A, merges, Stage
 C, pack) as ONE CUDA graph, and every later encode pass is one replay per
 chunk, each followed by its chunk's copies, and one wait (the counterpart
 of the reference's jitted per-stage programs).
+:meth:`DeviceEngine.encode_plan_tokens` is the same pass kept on the
+device: no copy, the plan's token ids as one int32 tensor.
 ``count_tokens_corpus`` over a warmed plan runs the corpus-mapped count:
-blocks of up to 8 chunks, each ONE CUDA graph captured once per plan and
-replayed per pass, and one scalar fetch. On a CPU device both bodies run
-eagerly. All cached values derive from the plan's immutable buffers, so
-reuse is exact; tokens are computed from the bytes on every pass.
+blocks of up to 8 chunks (a chunk with a wide bucket alone), each ONE CUDA
+graph captured once per plan and replayed per pass, and one scalar fetch.
+On a CPU device both bodies run eagerly. All cached values derive from the
+plan's immutable buffers, so reuse is exact; tokens are computed from the
+bytes on every pass.
 ``host_reads`` counts every fetch of device data.
 
 Batch decode (token ids -> bytes) concatenates the lists, runs
@@ -471,7 +474,8 @@ class DeviceEngine:
             out += (self._pack_fetch(tokens, plan.n_tokens[oki]),)
         return out
 
-    def _process_chunks_cached(self, plan: CorpusPlan, want_tokens: bool):
+    def _process_chunks_cached(self, plan: CorpusPlan, want_tokens: bool,
+                               fetch: bool = True):
         """Steady-state pipeline: every chunk's stages dispatched back to
         back from the plan's cached routing, capacities and round counts,
         with no host read at all.
@@ -479,17 +483,16 @@ class DeviceEngine:
         With cached token counts the pack and the device-to-host copy of each
         chunk's tokens are issued inside the dispatch, right after the
         chunk's scatters, so the copies run beside the later chunks' kernels.
-        ok results then carry a sixth entry, the fetch in flight.
+        ok results then carry a sixth entry, the fetch in flight
+        (``fetch=False`` starts no copy and leaves it out).
 
         On CUDA, an encode over a plan whose caches are complete (routing,
         token and document counts) is one graph replay per ok-chunk
         (:meth:`_encode_graphs`); the results' device tensors are then the
-        graphs' outputs, valid until the plan's next encode pass. Plans with
-        a wide bucket (:meth:`_uses_wide`) keep the eager dispatch, as their
-        count does.
+        graphs' outputs, valid until the plan's next encode pass.
         """
         if not (want_tokens and self._replays_encode(plan)):
-            return self._dispatch_eager(plan, want_tokens)
+            return self._dispatch_eager(plan, want_tokens, fetch)
         graphs = iter(self._encode_graphs(plan))
         results = []
         for (buf, doc_ends, parts, *_dev), c in zip(plan, plan.chunk_cache):
@@ -499,10 +502,13 @@ class DeviceEngine:
                 continue
             g = next(graphs)
             *out, packed = self._replay(g)
-            results.append(("ok", parts, *out, self._copy_fetch(plan.pinned, g.oki, packed)))
+            if fetch:
+                out.append(self._copy_fetch(plan.pinned, g.oki, packed))
+            results.append(("ok", parts, *out))
         return results
 
-    def _dispatch_eager(self, plan: CorpusPlan, want_tokens: bool):
+    def _dispatch_eager(self, plan: CorpusPlan, want_tokens: bool,
+                        fetch: bool = True):
         """The cached dispatch with every op issued eagerly: the body of
         each ok-chunk (:meth:`_chunk_body`), in plan order."""
         results = []
@@ -516,8 +522,10 @@ class DeviceEngine:
                 continue
             out = self._chunk_body(plan, oki, c, buf_dev, de_dev, want_tokens)
             if len(out) > 3:
-                out = out[:3] + (self._copy_fetch(plan.pinned, oki, out[3]),)
-            results.append(("ok", parts) + out)
+                *out, packed = out
+                if fetch:
+                    out.append(self._copy_fetch(plan.pinned, oki, packed))
+            results.append(("ok", parts, *out))
             oki += 1
         return results
 
@@ -932,6 +940,58 @@ class DeviceEngine:
             for ps in parts_out
         ]
 
+    def encode_plan_tokens(self, plan: CorpusPlan) -> torch.Tensor:
+        """The warmed encode kept on the device: every token id of the plan's
+        documents, in document order, as ONE int32 tensor on the engine's
+        device (the documents' counts are those of the pass that cached the
+        plan's token counts).
+
+        The plan must have had its first encode pass
+        (:meth:`encode_ordinary_batch_arrays`, which caches the token and
+        document counts). The cached dispatch runs (on CUDA one graph replay
+        per ok-chunk), no copy to the host is started and nothing is read
+        back: the chunks' live token prefixes and the host-routed chunks'
+        tokens (native, fallback; one host-to-device copy) are joined by one
+        ``torch.cat``. The tensor is the caller's, not a graph output.
+        """
+        if plan.chunk_cache is None or (
+            plan.n_tokens is None
+            and any(c["kind"] == "ok" for c in plan.chunk_cache)
+        ):
+            raise ValueError("encode_plan_tokens needs a plan whose first encode "
+                             "pass has run")
+        results = self._process_chunks_cached(plan, True, fetch=False)
+        host = self._run_host_chunks(results)
+        # every host chunk's tokens, in result order, in one array
+        host_lists = [toks for ri in sorted(host) for _d, toks in host[ri]]
+        host_dev = self._upload(
+            np.concatenate(host_lists).astype(np.int32, copy=False)
+        ) if host_lists else None
+        segments = []
+        oki = pos = 0
+        for ri, res in enumerate(results):
+            if res[0] == "ok":
+                n = plan.n_tokens[oki]
+                oki += 1
+                if n:
+                    segments.append(res[2][:n])
+                continue
+            n = sum(len(toks) for _d, toks in host[ri])
+            if n:
+                segments.append(host_dev[pos : pos + n])
+                pos += n
+        if not segments:
+            return torch.zeros(0, dtype=torch.int32, device=self.device)
+        return torch.cat(segments)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, copied without a wait (from
+        pinned memory) on CUDA."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     @staticmethod
     def _pack_metas(ns, dcs):
         """All chunks' n_tokens, then all their doc_counts, as one tensor."""
@@ -971,15 +1031,17 @@ class DeviceEngine:
 
     def _count_body(self, variant, divs, sig, buf, doc_ends):
         """One chunk's token count (0-d tensor): Stage A, every merge bucket
-        of ``sig`` ((b, lanes, cap, rounds) per bucket) and the offsets, with
-        the bucket counts taken from the device and nothing read back."""
+        of ``sig`` ((b, lanes, cap, rounds) per bucket; rounds per phase
+        where the bucket is wide) and the offsets, with the bucket counts
+        taken from the device and nothing read back."""
         table, _meta = self._stage_a(variant, divs, buf, doc_ends)
         counts = pipeline.counts_init(table.hit, table.n_pieces)
         for (b, lanes, cap, rounds) in sig:
             cols, outs, _ran = self._merge_bucket(
                 buf, table, b, lanes, cap, table.bucket_counts[b], rounds
             )
-            counts = pipeline.counts_add_bucket(counts, cols, outs[0][1])
+            for _ids_k, act_k in outs:
+                counts = pipeline.counts_add_bucket(counts, cols, act_k)
         _offsets, n_tokens = pipeline.make_offsets(counts, table.n_pieces)
         return n_tokens
 
@@ -1000,18 +1062,26 @@ class DeviceEngine:
         columns and more rounds add no-op rounds). Each group is split into
         blocks of 8 chunks and one remainder padded to a power of two with
         all-zero chunks, which classify to zero pieces and count zero
-        tokens.
+        tokens. A chunk with a wide bucket is a block of its own at its own
+        capacities and per-phase rounds: a wide body keeps one state per
+        phase, which a group's maximum would multiply.
         """
         if plan.mapped_count is not None:
             return plan.mapped_count
         bykey = {}
+        blocks = []
         for entry, c in zip(plan, plan.chunk_cache):
             if c["kind"] != "ok":
                 continue
             buf, doc_ends, _parts, _a, buf_dev, de_dev = entry
+            if any(lanes >= self.wide_min_lanes for _b, lanes, _cap, _n in c["caps"]):
+                sig = tuple((b, lanes, cap, r) for (b, lanes, cap, _n), r
+                            in zip(c["caps"], c["rounds"]))
+                blocks.append(CountBlock(c["variant"], c["divs"], sig,
+                                         [buf_dev], [de_dev], 1))
+                continue
             key = (c["variant"], c["divs"], len(buf), doc_ends.shape[0])
             bykey.setdefault(key, []).append((buf_dev, de_dev, c))
-        blocks = []
         for (variant, divs, N, D), items in bykey.items():
             by_bucket = {}
             for _b, _d, c in items:
@@ -1055,7 +1125,10 @@ class DeviceEngine:
                 for b in blocks
             }
             for blk in shapes.values():
-                once = tuple((b, lanes, cap, min(r, 1)) for b, lanes, cap, r in blk.sig)
+                once = tuple(
+                    (b, lanes, cap,
+                     tuple(min(x, 1) for x in r) if isinstance(r, tuple) else min(r, 1))
+                    for b, lanes, cap, r in blk.sig)
                 self._count_body(blk.variant, blk.divs, once, blk.bufs[0], blk.des[0])
 
         plan.capture_seconds, plan.graph_pool_bytes = self._capture(
@@ -1129,11 +1202,10 @@ class DeviceEngine:
 
     def _replays_encode(self, plan: CorpusPlan) -> bool:
         """Whether the plan's encode runs as graph replays: on CUDA, once
-        every cache of the plan is set, unless a bucket is wide."""
+        every cache of the plan is set."""
         return (
             self.device.type == "cuda" and plan.n_tokens is not None
             and plan.doc_counts is not None
-            and not self._uses_wide(plan)
         )
 
     def _encode_graphs(self, plan: CorpusPlan):
@@ -1153,23 +1225,13 @@ class DeviceEngine:
             plan.encode_graphs = units
         return plan.encode_graphs
 
-    def _uses_wide(self, plan: CorpusPlan) -> bool:
-        return any(
-            c["kind"] == "ok" and any(
-                lanes >= self.wide_min_lanes for (_b, lanes, _cap, _cnt) in c["caps"]
-            )
-            for c in plan.chunk_cache
-        )
-
     def count_tokens_corpus(self, texts: Sequence[Optional[str]], plan=None) -> int:
         """Total token count of a corpus.
 
         Over a warmed :class:`CorpusPlan` this is the mapped count: one graph
-        replay per block of up to 8 chunks and ONE scalar fetch per pass.
-        Plans with a wide-bucket chunk stay on the staged dispatch (their
-        per-phase state would multiply a block's size, and such corpora are
-        merge-bound anyway); chunks routed to the native engine or the
-        long-piece fallback keep their path.
+        replay per block of up to 8 chunks (a chunk with a wide bucket is a
+        block of its own) and ONE scalar fetch per pass; chunks routed to
+        the native engine or the long-piece fallback keep their path.
         """
         dev_total, host_total = self._count_parts(texts, plan)
         if dev_total is None:
@@ -1180,10 +1242,7 @@ class DeviceEngine:
         """(the device chunks' total as a 0-d int64 tensor on the device or
         None, the host chunks' total as an int), nothing of the first read
         back."""
-        if (
-            isinstance(plan, CorpusPlan) and plan.chunk_cache is not None
-            and not self._uses_wide(plan)
-        ):
+        if isinstance(plan, CorpusPlan) and plan.chunk_cache is not None:
             sums = [self._run_block(blk) for blk in self._mapped_count_groups(plan)]
             results = [
                 (c["kind"], e[0], e[1], e[2])

@@ -103,6 +103,22 @@ def _dryrun_rank(rank: int, n_ranks: int, port: int, device: str) -> None:
             raise RuntimeError(f"rank {rank}: sharded encode differs from the oracle")
         print(f"rank {rank}: all_gather encode ok ({len(texts)} documents, "
               f"{eng.native_chunks} native chunks on this rank)", flush=True)
+        # three passes over a plan: the first gathers the layout, the later
+        # ones gather the rank's tokens from the device; a plan of one
+        # document leaves every other rank empty
+        for docs in (texts, texts[:1]):
+            plan = tok.preload_corpus(docs)
+            gathers = []
+            for _ in range(3):
+                before = tok.collectives["all_gather"]
+                arrays = tok.encode_ordinary_batch_arrays(None, plan=plan)
+                gathers.append(tok.collectives["all_gather"] - before)
+                if [a.tolist() for a in arrays] != expect[: len(docs)]:
+                    raise RuntimeError(f"rank {rank}: warmed encode differs")
+            empty = [r for r, a in enumerate(plan.assign) if not a]
+            print(f"rank {rank}: warmed encode of {len(docs)} documents ok "
+                  f"(all_gathers {' '.join(map(str, gathers))}; empty ranks "
+                  f"{empty})", flush=True)
         print(f"rank {rank}: {scan.KERNEL_LAUNCHES} scan kernel launches", flush=True)
     finally:
         dist.destroy_process_group()

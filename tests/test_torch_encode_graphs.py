@@ -59,9 +59,14 @@ def test_encode_body_matches_staged_and_jax(name, flavor, monkeypatch):
     (cold) dispatch and the JAX engine's ``_process_chunks_cached`` give the
     same ids, and the body's fetch reads back to them."""
     orc, _jax, port = engines(name)
-    jax_eng = jax_device_merge(name, monkeypatch)
-    docs = flavor_docs(flavor)
+    body_against_staged_and_jax(orc, port, jax_device_merge(name, monkeypatch),
+                                flavor_docs(flavor))
 
+
+def body_against_staged_and_jax(orc, port, jax_eng, docs):
+    """The body of every ok-chunk of a warmed plan of ``docs`` on ``port``
+    against the staged dispatch and ``jax_eng``'s cached dispatch, exactly.
+    Returns the plan."""
     plan = port.preload_corpus(docs)
     staged = port._process_chunks(None, want_tokens=True, plan=plan)
     assert [r[0] for r in staged] == [c["kind"] for c in plan.chunk_cache]
@@ -90,6 +95,7 @@ def test_encode_body_matches_staged_and_jax(name, flavor, monkeypatch):
     for k, (b, w, j) in enumerate(zip(body, want, jax_ids)):
         np.testing.assert_array_equal(b, w, err_msg=f"chunk {k}: body against staged")
         np.testing.assert_array_equal(b, j, err_msg=f"chunk {k}: body against JAX")
+    return plan
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -147,3 +153,92 @@ def test_host_chunks_keep_their_paths(kind):
     assert kinds.count(kind) == 1 and kinds.count("ok") == len(plan) - 1
     assert len(plan.n_tokens) == len(plan) - 1
     assert plan.encode_graphs is None
+
+
+# ---- an engine with wide routing (buckets of 64 lanes and more through
+# ops/merge_exact): the same body, graphs on the card, none here
+
+def wide_engines(monkeypatch):
+    """(port engine, JAX engine), both with ``wide_min_lanes`` 64 and long
+    pieces on the device merge; the JAX engine reads the crossover from
+    ``JTOKKIT_TPU_WIDE_MIN`` when it is built."""
+    monkeypatch.setenv("JTOKKIT_TPU_NATIVE_LONG", "0")
+    monkeypatch.setenv("JTOKKIT_TPU_WIDE_MIN", "64")
+    if "wide" not in _JAX:
+        orc, _jax, port = engines("cl100k_base")
+        _JAX["wide"] = (
+            DeviceEngine.from_oracle(port.oracle, device="cpu", chunk_bytes=1 << 17,
+                                     wide_min_lanes=64, native_long=False),
+            JaxEngine.from_oracle(orc),
+        )
+    assert _JAX["wide"][1]._wide_min_lanes == 64
+    return _JAX["wide"]
+
+
+def wide_buckets(port, plan):
+    """The wide buckets' per-phase round counts over the plan's chunks."""
+    return [r for c in plan.chunk_cache if c["kind"] == "ok"
+            for (_b, lanes, _cap, _n), r in zip(c["caps"], c["rounds"])
+            if lanes >= port.wide_min_lanes]
+
+
+@pytest.mark.parametrize("flavor", ["mixed", "cjk"])
+def test_wide_body_matches_staged_and_jax(flavor, monkeypatch):
+    """The wide engine's body (the hybrid merge at its cached per-phase
+    rounds), chunk by chunk, against its staged dispatch and the JAX
+    engine's cached dispatch with its wide merge on."""
+    port, jax_eng = wide_engines(monkeypatch)
+    plan = body_against_staged_and_jax(engines("cl100k_base")[0], port, jax_eng,
+                                       flavor_docs(flavor))
+    rounds = wide_buckets(port, plan)
+    assert rounds and all(isinstance(r, tuple) for r in rounds)
+
+
+def test_wide_count_equals_encode_total(monkeypatch):
+    """Over a warmed plan of cjk and english chunks the count makes each
+    chunk with a wide bucket a block of its own at its own capacities and
+    per-phase rounds, reads once a pass, and equals the encode's total pass
+    after pass."""
+    port, _jax = wide_engines(monkeypatch)
+    orc = engines("cl100k_base")[0]
+    docs = flavor_docs("cjk") + flavor_docs("english")
+    want = [orc.encode_ordinary(t)[0] for t in docs]
+    total = sum(len(w) for w in want)
+    plan = port.preload_corpus(docs)
+    assert port.count_tokens_corpus(docs, plan=plan) == total  # cold
+    for k in range(3):
+        reads = port.host_reads
+        assert port.count_tokens_corpus(None, plan=plan) == total, f"pass {k}"
+        assert port.host_reads - reads == 1
+        arrays = port.encode_ordinary_batch_arrays(None, plan=plan)
+        assert [a.tolist() for a in arrays] == want, f"pass {k}"
+    assert all(c["kind"] == "ok" for c in plan.chunk_cache) and len(plan) >= 2
+    wide = [c for c in plan.chunk_cache if any(
+        lanes >= 64 for _b, lanes, _cap, _n in c["caps"])]
+    assert wide and wide_buckets(port, plan)
+    alone = [b for b in plan.mapped_count if isinstance(b.sig[-1][3], tuple)]
+    assert [(b.n_live, len(b.bufs)) for b in alone] == [(1, 1)] * len(wide)
+    for blk, c in zip(alone, wide):
+        assert [s[:3] for s in blk.sig] == [cap[:3] for cap in c["caps"]]
+        assert [s[3] for s in blk.sig] == list(c["rounds"])
+    assert sum(b.n_live for b in plan.mapped_count) == len(plan)
+
+
+def test_wide_cpu_plan_has_no_graphs(monkeypatch):
+    """A wide plan on the CPU counts and encodes eagerly: no graph is made
+    or replayed, and the scan wrapper is never asked for its kernel."""
+    port, _jax = wide_engines(monkeypatch)
+    orc = engines("cl100k_base")[0]
+    docs = flavor_docs("cjk")
+    want = [orc.encode_ordinary(t)[0] for t in docs]
+    plan = port.preload_corpus(docs)
+    replays, launches = port.graph_replays, scan.KERNEL_LAUNCHES
+    for k in range(3):
+        assert [a.tolist() for a in port.encode_ordinary_batch_arrays(
+            docs if k == 0 else None, plan=plan)] == want
+        assert port.count_tokens_corpus(None, plan=plan) == sum(len(w) for w in want)
+    assert wide_buckets(port, plan)
+    assert plan.encode_graphs is None and plan.encode_pool_bytes == 0
+    assert all(b.graph is None for b in plan.mapped_count) and plan.graph_pool_bytes == 0
+    assert port.graph_replays == replays and scan.KERNEL_LAUNCHES == launches
+    assert not port._replays_encode(plan)

@@ -63,3 +63,47 @@ def test_encode_replays_equal_the_eager_dispatch():
         replayed = [g.out[0][:n].cpu().numpy() for g, n in zip(graphs, plan.n_tokens)]
         assert all(np.array_equal(a, b) for a, b in zip(replayed, eager)), f"pass {k}"
     assert plan.encode_graphs is graphs
+
+
+@pytest.mark.gpu
+def test_wide_replays_equal_the_eager_dispatch():
+    """An engine with ``wide_min_lanes=64`` (the hybrid merge for buckets of
+    64 lanes and more) over 0.2 MB of cjk and 0.3 MB of mixed text: its
+    warmed count replays one graph per block (each chunk with a wide bucket
+    a block of its own) and its warmed encode one graph per chunk; each
+    replayed pass reads once, launches no scan and runs no merge round by
+    the wrapper, and its ids equal the eager dispatch's, chunk by chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an H100")
+    enc = Encodings.new_default_encoding_registry().get_encoding(EncodingType.CL100K_BASE)
+    engine = DeviceEngine.from_oracle(enc.oracle, wide_min_lanes=64, native_long=False)
+    docs = (corpus.generate(0.2, seed=33, flavor="cjk")
+            + corpus.generate(0.3, seed=34, flavor="mixed"))
+    plan = engine.preload_corpus(docs)
+    total = engine.count_tokens_corpus(docs, plan=plan)
+    assert any(lanes >= 64 for c in plan.chunk_cache for _b, lanes, _c, _n in c["caps"])
+    cold = engine.encode_ordinary_batch_arrays(None, plan=plan)  # caches the counts
+    assert sum(len(a) for a in cold) == total
+    assert engine.count_tokens_corpus(None, plan=plan) == total  # captures the count
+    captured = engine.encode_ordinary_batch_arrays(None, plan=plan)  # captures the encode
+    blocks, graphs = plan.mapped_count, plan.encode_graphs
+    assert blocks and all(b.graph is not None for b in blocks)
+    assert graphs and len(graphs) == len(plan) and all(g.graph is not None for g in graphs)
+    assert all(g.n_scans == 5 for g in graphs) and sum(g.n_rounds for g in graphs) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(captured, cold))
+    eager = _eager_ids(engine, plan)
+
+    def counters():
+        return (engine.graph_replays, engine.host_reads, engine.stage_a_runs,
+                merge.MERGE_ROUNDS, scan.KERNEL_LAUNCHES)
+
+    for k in range(3):
+        before = counters()
+        assert engine.count_tokens_corpus(None, plan=plan) == total, f"pass {k}"
+        assert [a - b for a, b in zip(counters(), before)] == [len(blocks), 1, 0, 0, 0]
+        before = counters()
+        arrays = engine.encode_ordinary_batch_arrays(None, plan=plan)
+        assert [a - b for a, b in zip(counters(), before)] == [len(graphs), 1, 0, 0, 0]
+        assert all(np.array_equal(a, b) for a, b in zip(arrays, cold)), f"pass {k}"
+        replayed = [g.out[0][:n].cpu().numpy() for g, n in zip(graphs, plan.n_tokens)]
+        assert all(np.array_equal(a, b) for a, b in zip(replayed, eager)), f"pass {k}"

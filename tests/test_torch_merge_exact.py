@@ -286,7 +286,8 @@ WIDE_DOCS = [
 def test_engine_wide_routing_parity(monkeypatch):
     """An engine with ``wide_min_lanes=64`` reproduces the oracle, the narrow
     port engine and the JAX engine with its wide merge on, over cold and
-    warmed count and encode passes; its plans stay off the mapped count."""
+    warmed count and encode passes; in the mapped count each chunk with a
+    wide bucket is a block of its own at its own per-phase rounds."""
     orc, _jax, narrow = engines("cl100k_base")
     wide = DeviceEngine.from_oracle(
         narrow.oracle, device="cpu", chunk_bytes=1 << 17, wide_min_lanes=64,
@@ -310,7 +311,12 @@ def test_engine_wide_routing_parity(monkeypatch):
     reads = wide.host_reads
     for _ in range(2):
         assert wide.count_tokens_corpus(None, plan=plan) == total
-    assert plan.mapped_count is None, "a plan with a wide bucket was mapped"
+    blocks = plan.mapped_count
+    assert [(b.n_live, len(b.bufs)) for b in blocks] == [(1, 1)] * len(plan)
+    assert [b.sig for b in blocks] == [
+        tuple((b, lanes, cap, r) for (b, lanes, cap, _n), r in zip(c["caps"], c["rounds"]))
+        for c in plan.chunk_cache
+    ]
     assert wide.host_reads - reads == 2
     for k in range(3):
         got = wide.encode_ordinary_batch_arrays(None, plan=plan)
