@@ -11,10 +11,11 @@
 Phases (each raises on failure, and then no result line is printed):
 
 1. Card: requires CUDA; prints nvidia-smi's name and power limit.
-2. Build: compiles both kernels (jtokkit_tpu_torch/csrc/scan.cu and
-   gather.cu) and the native host engine (csrc/jtokkit_native.cc) from the
-   checkout, one nvcc or g++ each, started together; prints the build times
-   and each kernel's registers and shared memory.
+2. Build: compiles the kernels (jtokkit_tpu_torch/csrc/scan.cu, gather.cu
+   and loop.cu, the device loop's step kernel) and the native host engine
+   (csrc/jtokkit_native.cc) from the checkout, one nvcc or g++ each, started
+   together; prints the build times and each kernel's registers and shared
+   memory.
 3. Each kernel against its plain PyTorch version on the card, exact int32
    equality. The scan first where a single-pass look-back can go wrong:
    1,000 calls back to back on one scratch and then more and fewer tiles,
@@ -27,15 +28,31 @@ Phases (each raises on failure, and then no result line is printed):
    out-of-range indices. Prints kernel, plain, library and bound times.
 4. The profiling entry point (jtokkit_tpu_torch.scripts.profile_gather), the
    gather kernel's path: its lines, and the kernel's launch count.
-5. Encode and count at full size on the device merge: cl100k_base from the
-   public registry on the default device, its engine built with
-   native_long=False (so cjk measures the device merge, not the host);
-   encode_ordinary_batch and count_tokens_batch over 16 MB english, 2 MB
-   mixed and 1 MB cjk (1 MiB chunks). Tokens are held against the host
-   oracle on a >= 1 MB sample of each corpus and on the four conformance
-   CSVs (through the registry); counts against token lengths; the scan
-   counters show 5 kernel launches per cl100k Stage A run and no
-   plain-version call.
+5. Encode and count at full size on the device merge, the un-planned path
+   as users call it: cl100k_base from the public registry on the default
+   device, its engine built with native_long=False (so cjk measures the
+   device merge, not the host), with its graph cache (the default on a
+   card). Per corpus (16 MB english, 2 MB mixed, 1 MB cjk; 1 MiB chunks): a
+   first encode_ordinary_batch and count_tokens_batch (each shape seen for
+   the first time is captured: Stage A, Stages B-C with their merge loops
+   as CUDA graph WHILE nodes), then a second encode, count and
+   encode_ordinary_batch_arrays over a fresh seed of the flavor, which must
+   replay: at most 3 host reads (encode) or 2 (count) plus one per
+   capacity-retry batch, no exit test read back, no eager Stage A run, no
+   scan launch by the wrapper, no capture; their merge rounds, read from
+   the loops' device counters, tokens and counts equal the same calls on an
+   engine without the cache (every op eager, one exit test read back a
+   round), timed beside them. MB/s of every call, the cache's graphs and
+   pool bytes after each corpus. Tokens are held against the host oracle
+   on a >= 1 MB sample of both batches and on the four conformance CSVs
+   (through the registry's cached path, no exit test); counts against
+   token lengths; the scan counters show 5 kernel launches per eager cl100k
+   Stage A run (the warm-ups before a capture) and no plain-version call.
+5b. The device loop against its plain version at the main path's shapes:
+   whole bucket merges of one english and one cjk chunk (narrow, and wide
+   where the bucket has 64 lanes or more), the loop as one graph replayed
+   against the loop that reads its test back; ids, active lanes and rounds
+   equal; device ms of both.
 6. Decode: the tokens of the three corpora go back through
    decode_bytes_batch; the bytes equal the documents' UTF-8 and the numpy
    host decode, with one scan launch per call; special and unknown ids behave
@@ -43,8 +60,11 @@ Phases (each raises on failure, and then no result line is printed):
 7. Long pieces (native_long=False): english documents with a 5000-byte and
    a 4500-byte piece and a 3000-byte CJK run mixed in; tokens equal the
    oracle, the chunks take the device fallback (3 scan launches per fallback
-   chunk beside Stage A's 5), and exactly the pieces over 4096 bytes merge
-   on the host.
+   chunk beside Stage A's 5 per eager run), and exactly the pieces over 4096
+   bytes merge on the host. Encode (captures), count and a second encode
+   (replays) read no exit test back; the second encode's rounds from the
+   device counters equal an eager engine's on the same batch, whose pass is
+   timed beside it.
 8. Native routing, through the public registry as users get it: chunks
    routed to the native engine out of all chunks per corpus, encode and
    count MB/s against phase 5's native_long=False engine, a warmed cjk plan;
@@ -127,6 +147,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 REPLACES_SCAN = "jtokkit_tpu/ops/pallas_scan.py:144"  # _scan_stacked
 REPLACES_GATHER = "scripts/profile_gather.py:100"  # main -> pal
+REPLACES_LOOP = "jtokkit_tpu/ops/merge.py:288"  # merge_rows_t3's lax.while_loop
 
 
 def log(msg: str) -> None:
@@ -464,56 +485,206 @@ def sample(docs, mb: float):
     return out
 
 
+def engine_counters(engine):
+    """What a call of the engine's un-planned path did, as counters to take
+    a difference of."""
+    from jtokkit_tpu_torch.ops import loop, merge, scan
+
+    return {"host_reads": engine.host_reads, "exit_tests": merge.EXIT_TESTS,
+            "merge_rounds": merge.MERGE_ROUNDS, "stage_a_runs": engine.stage_a_runs,
+            "scan_launches": scan.KERNEL_LAUNCHES, "graph_replays": engine.graph_replays,
+            "captures": engine.cold_captures, "retries": engine.capacity_retries,
+            "loop_steps": loop.STEP_RUNS}
+
+
+def counted(engine, fn):
+    """(fn's result, seconds between two synchronisations, the counters'
+    differences)."""
+    before = engine_counters(engine)
+    out, sec = timed(fn)
+    after = engine_counters(engine)
+    return out, sec, {k: after[k] - before[k] for k in before}
+
+
+def call_breakdown(engine, fn):
+    """Host-clock split of one un-planned call of ``fn`` on ``engine``: the
+    chunk plan and upload (``preload_corpus``), then the span up to the end
+    of each host read (the first is the metas read after the Stage A
+    replays; an encode's second the token and document counts after Stages
+    B-C, its third the wait on the token copies), then the rest (unpack,
+    split, lists). Returns ms per span, in order."""
+    import torch
+
+    marks = []
+    preload, read, wait = engine.preload_corpus, engine._read, engine._wait_fetches
+
+    def stamp(name, real):
+        def wrapped(*args, **kwargs):
+            out = real(*args, **kwargs)
+            marks.append((name, time.perf_counter()))
+            return out
+        return wrapped
+
+    engine.preload_corpus = stamp("plan and upload", preload)
+    engine._read = stamp("read", read)
+    engine._wait_fetches = stamp("fetch wait", wait)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        marks.append(("rest", time.perf_counter()))
+    finally:
+        del engine.preload_corpus, engine._read, engine._wait_fetches
+    out, prev, n_read = [], t0, 0
+    for name, t in marks:
+        if name == "read":
+            n_read += 1
+            name = f"to read {n_read}"
+        out.append((name, (t - prev) * 1e3))
+        prev = t
+    return out
+
+
 def phase_main_path(card: str):
+    """Phase 5: the un-planned path, first and second calls, beside the same
+    calls issued eagerly (see the module docstring)."""
     import torch
 
     from jtokkit_tpu_torch import Encodings, EncodingType
     from jtokkit_tpu_torch.engine.device import DeviceEngine
-    from jtokkit_tpu_torch.ops import merge, scan
+    from jtokkit_tpu_torch.ops import loop, merge, scan
     from jtokkit_tpu_torch.utils import corpus
 
     t0 = time.time()
     registry = Encodings.new_default_encoding_registry()
     enc = registry.get_encoding(EncodingType.CL100K_BASE)
-    # the device merge for every chunk: no routing to the native engine
+    # the device merge for every chunk: no routing to the native engine. The
+    # engine runs the un-planned path from its graph cache (the default on a
+    # card); "eager" is the same path with every op issued from the host and
+    # each merge loop reading its exit test back, the reference it is held to
     engine = DeviceEngine.from_oracle(enc.oracle, native_long=False)
-    if engine.device.type != "cuda" or engine.chunk_bytes != 1 << 20:
+    eager = DeviceEngine.from_oracle(enc.oracle, native_long=False, cold_cache=False)
+    if engine.device.type != "cuda" or engine.chunk_bytes != 1 << 20 \
+            or not engine.cold_cache or eager.cold_cache:
         raise AssertionError(f"engine on {engine.device}, chunk {engine.chunk_bytes}")
-    log(f"registry + cl100k tables on {engine.device}, engine built with "
-        f"native_long=False: {time.time() - t0:.1f} s")
+    log(f"registry + cl100k tables on {engine.device}, engines built with "
+        f"native_long=False (graph cache on; and off): {time.time() - t0:.1f} s")
 
-    corpora = {
-        "english": corpus.generate(16, flavor="english"),
-        "mixed": corpus.generate(2, flavor="mixed"),
-        "cjk": corpus.generate(1, flavor="cjk"),
-    }
-    # warm-up (allocator, library handles), not counted
-    engine.encode_ordinary_batch(corpora["english"][:16])
-    engine.count_tokens_batch(corpora["english"][:16])
+    sizes = {"english": 16, "mixed": 2, "cjk": 1}
+    # warm-up (allocator, library handles) at an 8 KB chunk, a shape the
+    # corpora do not have: not counted
+    warm_docs = ["warm-up text, not counted. " * 100]
+    for e in (engine, eager):
+        e.encode_ordinary_batch(warm_docs)
+        e.count_tokens_batch(warm_docs)
     torch.cuda.synchronize()
 
     scan.KERNEL_LAUNCHES = 0
     scan.PLAIN_CALLS = 0
     merge.MERGE_ROUNDS = 0
-    runs0, host0 = engine.stage_a_runs, engine.fallback_chunks
-    results = {}
-    for name, docs in corpora.items():
+    loop.STEP_RUNS = 0
+    launches = runs = 0  # the cached engine's; the eager reference's are not
+    exit_tests0, fallback0 = merge.EXIT_TESTS, engine.fallback_chunks
+    results, summary = {}, {}
+    oracle = enc.oracle
+    for name, size in sizes.items():
+        docs = corpus.generate(size, flavor=name)
+        fresh = corpus.generate(size, seed=1, flavor=name)
         mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
-        t = time.time()
-        tokens = engine.encode_ordinary_batch(docs)
-        enc_s = time.time() - t
-        t = time.time()
-        counts = engine.count_tokens_batch(docs)
-        cnt_s = time.time() - t
+        mb1 = sum(len(d.encode("utf-8")) for d in fresh) / 1e6
+        calls = {}
+        # the first calls meet the corpus's shapes: each new one is captured
+        tokens, enc_s, calls["first_encode"] = counted(
+            engine, lambda: engine.encode_ordinary_batch(docs))
+        counts, cnt_s, calls["first_count"] = counted(
+            engine, lambda: engine.count_tokens_batch(docs))
+        # a fresh seed of the same flavor: its shapes are cached, the calls replay
+        got, enc1_s, calls["second_encode"] = counted(
+            engine, lambda: engine.encode_ordinary_batch(fresh))
+        counts1, cnt1_s, calls["second_count"] = counted(
+            engine, lambda: engine.count_tokens_batch(fresh))
+        arrays, arr1_s, calls["second_encode_arrays"] = counted(
+            engine, lambda: engine.encode_ordinary_batch_arrays(fresh))
+        if name == "english":
+            for label, fn in (("encode arrays", lambda: engine.encode_ordinary_batch_arrays(fresh)),
+                              ("count", lambda: engine.count_tokens_batch(fresh))):
+                split = call_breakdown(engine, fn)
+                summary.setdefault("breakdown", {})[label] = split
+                log(f"  {label}, seed 1 again, host ms by span: "
+                    + ", ".join(f"{n} {ms:.1f}" for n, ms in split) + f" [{card}]")
+        stats = engine.cold_cache_stats()
+        for c in calls.values():
+            launches += c["scan_launches"]
+            runs += c["stage_a_runs"]
+        # the same bytes, eagerly: tokens, counts and merge rounds to hold the
+        # replays to
+        want, e_enc_s, e_enc = counted(eager, lambda: eager.encode_ordinary_batch(fresh))
+        want_counts, e_cnt_s, e_cnt = counted(eager, lambda: eager.count_tokens_batch(fresh))
+        for label, c, limit, eager_c in (
+                ("encode", calls["second_encode"], 3, e_enc),
+                ("count", calls["second_count"], 2, e_cnt),
+                ("encode arrays", calls["second_encode_arrays"], 3, e_enc)):
+            if c["host_reads"] > limit + c["retries"] or c["exit_tests"] != 0 \
+                    or c["stage_a_runs"] != 0 or c["scan_launches"] != 0 or c["captures"] != 0:
+                raise AssertionError(f"{name}: second un-planned {label} did not replay: {c}")
+            if c["merge_rounds"] != eager_c["merge_rounds"] or c["loop_steps"] <= 0:
+                raise AssertionError(
+                    f"{name}: second {label}: {c['merge_rounds']} merge rounds from the device "
+                    f"counters, {eager_c['merge_rounds']} in the eager path")
+        if any(c["exit_tests"] for c in calls.values()):
+            raise AssertionError(f"{name}: the cached path read an exit test back: {calls}")
+        if got != want or counts1 != want_counts or counts1 != [len(t) for t in want] \
+                or [a.tolist() for a in arrays] != want:
+            raise AssertionError(f"{name}: the replays differ from the eager path")
+        if counts != [len(t) for t in tokens]:
+            raise AssertionError(f"{name}: counts differ from token lengths")
+        for batch, toks in ((docs, tokens), (fresh, got)):
+            for d, g in zip(sample(batch, 1.0), toks):
+                if g != oracle.encode_ordinary(d)[0]:
+                    raise AssertionError(f"{name}: tokens differ from the oracle")
+        row = {"mb": mb, "fresh_mb": mb1,
+               "first_encode_mb_s": mb / enc_s, "first_count_mb_s": mb / cnt_s,
+               "second_encode_mb_s": mb1 / enc1_s, "second_count_mb_s": mb1 / cnt1_s,
+               "second_encode_arrays_mb_s": mb1 / arr1_s,
+               "eager_encode_mb_s": mb1 / e_enc_s, "eager_count_mb_s": mb1 / e_cnt_s,
+               "calls": calls, "eager": {"encode": e_enc, "count": e_cnt},
+               "cache": stats}
+        summary[name] = row
+        n_tok = sum(len(t) for t in tokens)
+        log(f"{name}: {mb:.2f} MB, {len(docs)} docs, {n_tok} tokens; first calls (capture "
+            f"what is new): encode {row['first_encode_mb_s']:.2f} MB/s "
+            f"({calls['first_encode']['captures']} captures, "
+            f"{calls['first_encode']['host_reads']} host reads), count "
+            f"{row['first_count_mb_s']:.2f} ({calls['first_count']['captures']} captures) "
+            f"[{card}]")
+        for label in ("second_encode", "second_count", "second_encode_arrays"):
+            c = calls[label]
+            log(f"  {label.replace('_', ' ')} (seed 1, {mb1:.2f} MB): "
+                f"{row[label + '_mb_s']:.2f} MB/s; {c['host_reads']} host reads "
+                f"({c['retries']} retry batches), {c['exit_tests']} exit tests, "
+                f"{c['stage_a_runs']} eager Stage A runs, {c['scan_launches']} scan "
+                f"launches by the wrapper, {c['graph_replays']} replays, "
+                f"{c['merge_rounds']} merge rounds from the device counters "
+                f"({c['loop_steps']} step-kernel runs) [{card}]")
+        log(f"  eager, same bytes: encode {row['eager_encode_mb_s']:.2f} MB/s "
+            f"({e_enc['host_reads']} host reads, {e_enc['exit_tests']} exit tests, "
+            f"{e_enc['merge_rounds']} merge rounds), count {row['eager_count_mb_s']:.2f} MB/s "
+            f"({e_cnt['host_reads']} host reads); ids, counts and rounds equal; "
+            f"{len(sample(fresh, 1.0))} + {len(sample(docs, 1.0))} docs equal the oracle "
+            f"[{card}]")
+        log(f"  graph cache after {name}: {stats['units']} graphs ({stats['stage_a']['units']} "
+            f"Stage A, {stats['stages_b_c']['units']} Stages B-C, {stats['flat']['units']} "
+            f"fallback merges) holding {stats['loops']} device loops, pool "
+            f"{stats['pool_bytes']} bytes; {stats['captures']} captures in "
+            f"{stats['capture_seconds']:.2f} s [{card}]")
         results[name] = (docs, tokens, counts, mb, enc_s, cnt_s)
-    launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
-    rounds = merge.MERGE_ROUNDS
-    runs = engine.stage_a_runs - runs0
-    fallback_chunks = engine.fallback_chunks - host0
+    plain = scan.PLAIN_CALLS
+    fallback_chunks = engine.fallback_chunks - fallback0
 
-    log(f"encode and count: {runs} Stage A runs, {launches} scan kernel "
-        f"launches, {plain} plain scan calls, {rounds} merge rounds, "
-        f"{fallback_chunks} fallback chunks")
+    log(f"encode and count (the cached engine): {runs} eager Stage A runs (warm-ups before "
+        f"capture), {launches} scan kernel launches, {plain} plain scan calls, "
+        f"{merge.EXIT_TESTS - exit_tests0} exit tests in all (the eager engine's included), "
+        f"{fallback_chunks} fallback chunks, {loop.STEP_RUNS} loop step-kernel runs")
     if launches != 5 * runs or runs == 0:
         raise AssertionError(f"{launches} launches for {runs} cl100k Stage A runs")
     if plain != 0:
@@ -521,30 +692,107 @@ def phase_main_path(card: str):
     if fallback_chunks != 0:
         raise AssertionError(f"{fallback_chunks} chunks took the long-piece fallback")
 
-    oracle = enc.oracle
-    for name, (docs, tokens, counts, mb, enc_s, cnt_s) in results.items():
-        if counts != [len(t) for t in tokens]:
-            raise AssertionError(f"{name}: counts differ from token lengths")
-        checked = sample(docs, 1.0)
-        for d, got in zip(checked, tokens):
-            if got != oracle.encode_ordinary(d)[0]:
-                raise AssertionError(f"{name}: tokens differ from the oracle")
-        n_tok = sum(len(t) for t in tokens)
-        log(f"{name}: {mb:.2f} MB, {len(docs)} docs, {n_tok} tokens; encode "
-            f"{mb / enc_s:.2f} MB/s, count {mb / cnt_s:.2f} MB/s, native_long=False "
-            f"({len(checked)} docs checked against the oracle) [{card}]")
-
     for name in ("r50k_base", "p50k_base", "p50k_edit", "cl100k_base"):
         rows = load_conformance(name)
         e = registry.get_encoding(name)
+        dev_engine = e.device_engine()
+        tests, replays = merge.EXIT_TESTS, dev_engine.graph_replays
         got = e.encode_ordinary_batch([r[0] for r in rows])
         for (text, want, _w10), g in zip(rows, got):
             if g != want or g != e.oracle.encode_ordinary(text)[0]:
                 raise AssertionError(f"{name}: conformance row {text!r} differs")
         if e.count_tokens_batch([r[0] for r in rows]) != [len(g) for g in got]:
             raise AssertionError(f"{name}: conformance counts differ")
-        log(f"{name}: {len(rows)} conformance rows equal on the card")
-    return enc, engine, launches, results
+        if not dev_engine.cold_cache or merge.EXIT_TESTS != tests \
+                or dev_engine.graph_replays == replays:
+            raise AssertionError(f"{name}: the conformance rows did not take the graph cache")
+        log(f"{name}: {len(rows)} conformance rows equal on the card, through the graph "
+            f"cache ({dev_engine.graph_replays - replays} replays, 0 exit tests)")
+    breakdown = summary.pop("breakdown")
+    # every cached call of the phase, the conformance rows' too
+    return enc, engine, launches, results, {"corpora": summary, "loop_steps": loop.STEP_RUNS,
+                                            "breakdown_ms": breakdown}
+
+
+def phase_loop(engine, card: str):
+    """The device loop (csrc/loop.cu through ops/loop.py) against its plain
+    version, the loop that reads its exit test back after every round, at
+    the main path's shapes: whole bucket merges (``merge_rows_t3``, and
+    ``merge_bucket_exact`` where the bucket is wide) of one english and one
+    cjk chunk, the device form as one CUDA graph replayed, the plain form
+    eagerly; ids, active lanes and rounds equal (exact)."""
+    import torch
+
+    from jtokkit_tpu_torch.engine import device as dev_mod
+    from jtokkit_tpu_torch.ops import merge, merge_exact, pipeline, stage4
+    from jtokkit_tpu_torch.scripts.profile_gather import event_ms
+    from jtokkit_tpu_torch.utils import corpus
+
+    T = engine.tables
+    shapes = []
+    max_err = 0
+    for flavor, seed in (("english", 5), ("cjk", 5)):
+        plan = engine.preload_corpus(corpus.generate(1.2, seed=seed, flavor=flavor))
+        buf, _de, _parts, ascii_only, buf_dev, de_dev = plan[0]
+        divs = dev_mod._DIVS_PRIMARY if ascii_only else dev_mod._DIVS_PRIMARY_UNICODE
+        tab, meta = engine._stage_a("ascii" if ascii_only else "unicode", divs,
+                                    buf_dev, de_dev)
+        counts = meta.cpu().numpy()[2:]
+        for b, lanes in enumerate(stage4.BUCKET_WIDTHS):
+            cnt = int(counts[b])
+            if cnt == 0 or (flavor == "english") != (lanes <= 32):
+                continue
+            cap = engine._bucket_cap(len(buf), lanes, cnt)
+            for wide in (False, True) if lanes >= 64 else (False,):
+                def run(rounds, cnt_arg, b=b, lanes=lanes, cap=cap, wide=wide):
+                    if wide:
+                        cols, outs, ran = merge_exact.merge_bucket_exact(
+                            buf_dev, tab.starts, tab.lens, tab.miss_sorted,
+                            tab.group_start[b], cnt_arg, T.byte_to_id, T.byte_pair_seed,
+                            T.pair_rows_cat, T.table_mask, lanes=lanes, cap=cap,
+                            rounds=rounds)
+                        return [x for o in outs for x in o], list(ran)
+                    cols, ids, act, ran = pipeline.merge_bucket_v3(
+                        buf_dev, tab.starts, tab.lens, tab.miss_sorted, tab.group_start[b],
+                        cnt_arg, T.byte_to_id, T.byte_pair_id, T.pair_rows_cat,
+                        T.table_mask, lanes=lanes, cap=cap, rounds=rounds)
+                    return [ids, act], [ran]
+
+                unit = dev_mod.ColdUnit(("loop", b, wide), [])
+                ones = [1] * len(merge_exact.phase_chain(lanes)) if wide else 1
+                engine._capture(
+                    lambda: run(tuple(ones) if wide else ones, tab.bucket_counts[b]),
+                    [unit],
+                    lambda u: run(merge.DEVICE, tab.bucket_counts[b]),
+                    shared_pool=False)
+                engine._replay(unit)
+                got, counters = unit.out
+                want, plain_rounds = run(None, cnt)
+                rounds = [int(c) for c in counters]
+                err = 0
+                for gi, ga, wi, wa in zip(got[0::2], got[1::2], want[0::2], want[1::2]):
+                    err = max(err, int((ga != wa).sum()), int(
+                        (torch.where(wa, gi, 0) - torch.where(wa, wi, 0)).abs().max()))
+                if rounds != plain_rounds or err != 0:
+                    raise AssertionError(
+                        f"device loop {flavor} lanes {lanes} wide {wide}: rounds {rounds} / "
+                        f"{plain_rounds}, err {err}")
+                max_err = max(max_err, err)
+                W = lanes
+                row = {
+                    "flavor": flavor, "lanes": lanes, "cap": cap, "count": cnt,
+                    "wide": wide, "rounds": rounds,
+                    "ms": event_ms(lambda: engine._replay(unit), 5),
+                    "plain_ms": event_ms(lambda: run(None, cnt), 2),
+                    # the bucket's bytes in, ids and active lanes out, once
+                    "bound_ms": (W * cap * (1 + 4 + 1) + cap * 4) / HBM_BYTES_PER_S * 1e3,
+                }
+                shapes.append(row)
+                log(f"device loop {flavor} bucket {b} ({lanes} lanes, cap {cap}, {cnt} live, "
+                    f"{'wide' if wide else 'narrow'}): rounds {rounds} equal the plain loop's; "
+                    f"graph replay {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                    f"{row['bound_ms']:.5f} ms [{card}]")
+    return shapes, max_err
 
 
 def phase_decode(enc, results, card: str):
@@ -604,10 +852,14 @@ def phase_decode(enc, results, card: str):
 
 def phase_long_pieces(engine, card: str):
     """Chunks with a piece over the largest merge bucket, at 1 MiB chunks, on
-    the native_long=False engine."""
+    the native_long=False engine: the first encode (captures the fallback's
+    merge graphs), the count and a second encode replay them; the same
+    encode on an engine without the graph cache reads each round's exit
+    test back."""
     import torch
 
     from jtokkit_tpu_torch.engine import presplit
+    from jtokkit_tpu_torch.engine.device import DeviceEngine
     from jtokkit_tpu_torch.ops import merge, scan, stage4
     from jtokkit_tpu_torch.utils import corpus
 
@@ -624,18 +876,11 @@ def phase_long_pieces(engine, card: str):
 
     scan.KERNEL_LAUNCHES = 0
     scan.PLAIN_CALLS = 0
-    merge.MERGE_ROUNDS = 0
     chunks0, pieces0 = engine.fallback_chunks, engine.host_pieces
-    runs0 = engine.stage_a_runs
-    t = time.time()
-    tokens = engine.encode_ordinary_batch(docs)
-    torch.cuda.synchronize()
-    enc_s = time.time() - t
+    tokens, enc_s, first = counted(engine, lambda: engine.encode_ordinary_batch(docs))
     chunks, pieces = engine.fallback_chunks - chunks0, engine.host_pieces - pieces0
-    rounds = merge.MERGE_ROUNDS
-    t = time.time()
-    counts = engine.count_tokens_batch(docs)
-    cnt_s = time.time() - t
+    counts, cnt_s, cnt = counted(engine, lambda: engine.count_tokens_batch(docs))
+    again, enc2_s, second = counted(engine, lambda: engine.encode_ordinary_batch(docs))
     launches, plain = scan.KERNEL_LAUNCHES, scan.PLAIN_CALLS
     if plain != 0:
         raise AssertionError(f"long pieces: {plain} scans took the plain version")
@@ -643,28 +888,47 @@ def phase_long_pieces(engine, card: str):
         raise AssertionError(
             f"long pieces: {chunks} fallback chunks, {pieces} host pieces "
             f"for {n_over} pieces over 4096 bytes")
-    if engine.fallback_chunks - chunks0 != 2 * chunks or (
-            engine.host_pieces - pieces0 != 2 * n_over):
+    if engine.fallback_chunks - chunks0 != 3 * chunks or (
+            engine.host_pieces - pieces0 != 3 * n_over):
         raise AssertionError("long pieces: count took another route than encode")
-    if counts != [len(t) for t in tokens]:
+    if counts != [len(t) for t in tokens] or again != tokens:
         raise AssertionError("long pieces: counts differ from token lengths")
-    # Stage A's five scans per run, the fallback boundaries' three per chunk
-    runs = engine.stage_a_runs - runs0
-    if launches != 5 * runs + 3 * 2 * chunks:
+    # Stage A's five scans per eager run, the fallback boundaries' three per
+    # chunk
+    runs = first["stage_a_runs"] + cnt["stage_a_runs"] + second["stage_a_runs"]
+    if launches != 5 * runs + 3 * 3 * chunks:
         raise AssertionError(
             f"long pieces: {launches} scan launches for {runs} Stage A runs "
-            f"and {2 * chunks} fallback chunks")
+            f"and {3 * chunks} fallback chunks")
+    if first["exit_tests"] or cnt["exit_tests"] or second["exit_tests"] \
+            or second["captures"] or second["stage_a_runs"]:
+        raise AssertionError(f"long pieces: the cached path read exit tests back or "
+                             f"captured again: {first}, {cnt}, {second}")
+    # the same pass without the graph cache: rounds and tokens to hold it to
+    eager = DeviceEngine.from_oracle(engine.oracle, native_long=False, cold_cache=False)
+    want, eager_s, eager_c = counted(eager, lambda: eager.encode_ordinary_batch(docs))
+    if want != tokens or eager_c["merge_rounds"] != second["merge_rounds"]:
+        raise AssertionError(
+            f"long pieces: {second['merge_rounds']} rounds from the device counters, "
+            f"{eager_c['merge_rounds']} eagerly, or tokens differ")
     oracle = engine.oracle
     for d, got in zip(docs, tokens):
         if got != oracle.encode_ordinary(d)[0]:
             raise AssertionError("long pieces: tokens differ from the oracle")
     log(f"long pieces: {mb:.2f} MB, {len(docs)} docs, {chunks} fallback chunks, "
-        f"{pieces} pieces merged on the host, {rounds} merge rounds in encode, "
-        f"{launches} scan launches (encode + count); encode {enc_s:.2f} s, "
-        f"count {cnt_s:.2f} s; all docs equal the oracle [{card}]")
+        f"{pieces} pieces merged on the host, {second['merge_rounds']} merge rounds in an "
+        f"encode ({eager_c['merge_rounds']} eagerly), {launches} scan launches (encode, "
+        f"count, encode); first encode {enc_s:.2f} s ({first['captures']} captures), count "
+        f"{cnt_s:.2f} s, second encode {enc2_s:.2f} s ({second['host_reads']} host reads, "
+        f"0 exit tests, {second['graph_replays']} replays); without the graph cache "
+        f"{eager_s:.2f} s ({eager_c['host_reads']} host reads, {eager_c['exit_tests']} exit "
+        f"tests); all docs equal the oracle [{card}]")
     return launches, {"mb": mb, "encode_s": enc_s, "count_s": cnt_s,
+                      "second_encode_s": enc2_s, "eager_encode_s": eager_s,
                       "fallback_chunks": chunks, "host_pieces": pieces,
-                      "merge_rounds": rounds}
+                      "merge_rounds": second["merge_rounds"], "calls": {
+                          "first_encode": first, "count": cnt, "second_encode": second,
+                          "eager_encode": eager_c}}
 
 
 def phase_native_routing(enc, results, card: str):
@@ -1689,6 +1953,10 @@ def phase_steady_state(engine, results, card: str):
             f"launches = the {recorded} its {len(plan.encode_graphs)} graphs recorded, "
             f"{pass_kernels} kernels in all; ids equal the encode phase's")
     replayed = scan.REPLAYED_SCANS
+    summary["empty_cache_s"] = engine.empty_cache_seconds
+    log(f"steady state: _capture's torch.cuda.empty_cache() took "
+        f"{engine.empty_cache_seconds:.3f} s over this engine's plan captures (the "
+        f"un-planned path's captures make none) [{card}]")
     log(f"steady state: {launches} scan kernel launches by the wrapper (cold passes, "
         f"warm-ups before capture, eager dispatches), {replayed} more scans inside graph "
         f"replays by the graphs' recordings, of which {profiled_scans} were counted in "
@@ -1772,7 +2040,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from jtokkit_tpu_torch import native
-    from jtokkit_tpu_torch.ops import gather, scan
+    from jtokkit_tpu_torch.ops import gather, loop, scan
 
     def timed_build(fn):
         t = time.time()
@@ -1780,7 +2048,7 @@ def main() -> int:
         return time.time() - t
 
     t = time.time()
-    libraries = [scan.LIBRARY, gather.LIBRARY]
+    libraries = [scan.LIBRARY, gather.LIBRARY, loop.LIBRARY]
     builds = [(lib.name, lib.build) for lib in libraries] + [("native", native.build)]
     with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each, together
         futures = [(name, pool.submit(timed_build, fn)) for name, fn in builds]
@@ -1807,7 +2075,9 @@ def main() -> int:
         phase_s[name] = time.time() - t
         return out
 
-    enc, device_merge, launches, results = phase("main_path", phase_main_path, card)
+    enc, device_merge, launches, results, main_row = phase(
+        "main_path", phase_main_path, card)
+    loop_rows, loop_err = phase("loop", phase_loop, device_merge, card)
     decode_launches, decode_rates = phase("decode", phase_decode, enc, results, card)
     long_launches, long_row = phase("long_pieces", phase_long_pieces, device_merge, card)
     native_launches, native_row = phase(
@@ -1871,11 +2141,33 @@ def main() -> int:
         "shape": gather_row["shape"],
         "shapes": gather_row["shapes"],
         "limit_table_ms": gather_row["limit_table_ms"],
+    }, {
+        "name": "device_while",
+        "route": "cuda",
+        "source": "jtokkit_tpu_torch/csrc/loop.cu",
+        # not a Pallas kernel: the counterpart of the merge loops'
+        # lax.while_loop (also merge.py:445, merge_exact.py:197)
+        "replaces": REPLACES_LOOP,
+        "does": "a CUDA graph WHILE node per merge loop: its step kernel sets the "
+                "node's condition from the loop's test on the card and counts the round",
+        # runs of the step kernel in the main path's calls, from the round
+        # counters read back (one per loop run and one per round; the kernel
+        # runs inside graph replays, never launched by the wrapper itself)
+        "launches": main_row["loop_steps"],
+        "max_abs_err": loop_err,
+        "ms": loop_rows[0]["ms"],
+        "plain_ms": loop_rows[0]["plain_ms"],
+        "bound_ms": loop_rows[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": {k: loop_rows[0][k] for k in ("flavor", "lanes", "cap", "count", "wide",
+                                               "rounds")},
+        "shapes": loop_rows,
     }]
-    summary = {name: {"mb": r[3], "encode_mb_s": r[3] / r[4],
-                      "count_mb_s": r[3] / r[5], "decode_mb_s": decode_rates[name]}
-               for name, r in results.items()}
-    log(json.dumps({"main_path": summary, "long_pieces": long_row,
+    summary = {name: {**main_row["corpora"][name], "decode_mb_s": decode_rates[name]}
+               for name in results}
+    log(json.dumps({"main_path": summary, "main_path_breakdown_ms": main_row["breakdown_ms"],
+                    "loop": loop_rows, "long_pieces": long_row,
                     "native_routing": native_row, "sharded": sharded_row,
                     "cli": cli_row, "bench": bench_row, "steady_state": steady_row,
                     "card": card,

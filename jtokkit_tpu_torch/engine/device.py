@@ -12,7 +12,7 @@ methods). Per batch (documents -> token ids):
 2. Stage A (``ops/stage4.stage_a_v4``) per chunk: classify, piece
    boundaries, piece table, word-table direct hits, miss list grouped by
    length bucket.
-3. Host sync 1: ONE fetch of every chunk's meta row. Chunks whose piece or
+3. Host read 1: ONE fetch of every chunk's meta row. Chunks whose piece or
    miss table overflowed run Stage A again with the roomy capacities.
    Chunks with a piece longer than the largest merge bucket (4096 bytes of
    one regex piece) leave the staged path (``fallback_chunks``): their
@@ -28,13 +28,27 @@ methods). Per batch (documents -> token ids):
    (``ops/pipeline.merge_bucket_v3``), capacity the smallest power of two
    covering the bucket's count.
 5. Stage C: counts, offsets, token scatters, per-document counts.
-6. Host sync 2: ONE fetch of every chunk's token count and document counts,
+6. Host read 2: ONE fetch of every chunk's token count and document counts,
    then every chunk's live token prefix, packed to 2 bytes a token (plus a
    1-bit plane where ids need a 17th bit), copied into pinned host memory
    without blocking, and ONE wait before the first is consumed. (The
    reference also ships a 12-bit plane where it is smaller; on this port's
    card its pack and unpack cost more than the bytes it saves, so the port
    has none.)
+
+On CUDA this path runs from the engine's graph cache (``cold_cache``, the
+counterpart of the reference's jit caches keyed by shape): Stage A of a
+chunk is the replay of a CUDA graph keyed by (variant, capacity divisors,
+flat size, document slots), its Stages B and C one graph keyed by that and
+the buckets' capacities, whose live counts it takes from the piece table on
+the card, and the fallback's bucket merge one graph per (rows, width). A
+shape met for the first time is captured then. Every merge loop inside
+these graphs is a CUDA graph WHILE node (``ops/loop.py``) that runs its
+rounds on the card, so the only host reads are the two above (a count
+needs only the document counts) and the fetch wait; the loops' round
+counters come back with the last read. ``cold_cache=False`` (the default
+on a CPU device) issues every op eagerly and reads each merge loop's exit
+test back after every round.
 
 Steady state (``plan = preload_corpus(texts)``, then the batch methods with
 ``plan=plan``): the first pass over a plan is the cold pass above and leaves
@@ -70,6 +84,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
@@ -77,8 +92,8 @@ import numpy as np
 import torch
 
 from ..ops import (
-    boundaries, classify, decode as decode_ops, merge, merge_exact, pipeline,
-    scan, stage4,
+    boundaries, classify, decode as decode_ops, loop, merge, merge_exact,
+    pipeline, scan, stage4,
 )
 from ..vocab import tables as vtables
 from ..vocab.loader import asset_path
@@ -164,7 +179,27 @@ class _Captured:
         self.graph = None
         self.out = None
         self.n_scans = 0    # scan calls recorded in the graph
-        self.n_rounds = 0   # merge rounds recorded in the graph
+        self.n_rounds = 0   # merge rounds recorded in the graph (fixed counts)
+        # the graphs of its device loops' bodies (ops/loop.py), whose memory
+        # pools hold the bodies' temporaries: kept as long as the graph
+        self.bodies = []
+
+
+class ColdUnit(_Captured):
+    """One entry of the engine's cache for the un-planned path: a stage of
+    one chunk at one shape (``key``), recorded once and replayed for every
+    chunk of that shape. ``inputs`` are its static input tensors: each run
+    copies the chunk's tensors into them on the card, and the caller clones
+    what it keeps of ``out`` before the next run overwrites it. The graph
+    and its loop bodies each have a memory pool of their own, so units
+    replay in any order. On a CPU device the body runs eagerly every time.
+    """
+
+    def __init__(self, key, inputs):
+        super().__init__()
+        self.key, self.inputs = key, inputs
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0     # device memory reserved while it was captured
 
 
 class CountBlock(_Captured):
@@ -193,6 +228,18 @@ class EncodeGraph(_Captured):
         self.oki, self.c, self.buf_dev, self.de_dev = oki, c, buf_dev, de_dev
 
 
+class ChunkResults(list):
+    """One result per chunk (:meth:`DeviceEngine._process_chunks`).
+    ``pending`` holds (chunk cache entry, device int32 round counters) per
+    ok-chunk whose merges ran as device loops: the caller fetches them with
+    its last read (``_read(t, results.pending)``), which fills the entries'
+    rounds."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.pending = []
+
+
 class DeviceEngine:
     """Batch encode engine for one encoding (built-in patterns only)."""
 
@@ -205,12 +252,16 @@ class DeviceEngine:
         8: 2, 16: 9, 32: 17, 64: 33, 128: 65, 256: 129, 384: 257,
         512: 385, 4096: 513,
     }
+    # units each cache of the un-planned path keeps (least recently used
+    # first out)
+    COLD_CACHE_MAX = 32
 
     def __init__(self, name: str, pattern: str, packed: vtables.PackedVocabulary,
                  oracle: OracleEngine, *, device=None,
                  chunk_bytes: int = CHUNK_BYTES,
                  wide_min_lanes: int = 1 << 30,
-                 native_long: bool = True):
+                 native_long: bool = True,
+                 cold_cache: Optional[bool] = None):
         self.name = name
         self.pattern = pattern
         self.packed = packed
@@ -226,6 +277,9 @@ class DeviceEngine:
         self.fallback_chunks = 0
         self.host_pieces = 0
         self.stage_a_runs = 0
+        # cold passes that ran Stage A again for a capacity overflow (each
+        # one more read of metas)
+        self.capacity_retries = 0
         # fetches of device data by the host: every .cpu() / .item() of the
         # engine's paths (the cold merge loops' exit tests included) and the
         # one wait on a pass's token copies
@@ -243,23 +297,42 @@ class DeviceEngine:
         # ids over 16 bits (cl100k) ship a 1-bit plane beside the low halves
         self._fetch_wide = packed.n_tokens > 0xFFFF
         self._capture_stream = None  # made at the first graph capture
-        # replays of the mapped count's graphs; the Stage A runs, scans and
-        # merge rounds inside a replay pass through no Python and are in no
-        # counter (a block's n_scans and n_rounds say what it recorded)
+        # replays of the engine's graphs (plans' and the un-planned path's);
+        # the Stage A runs, scans and merge rounds inside a replay pass
+        # through no Python and are in no counter (a unit's n_scans and
+        # n_rounds say what it recorded; device loops report their rounds
+        # through their counters)
         self.graph_replays = 0
+        # the un-planned path's caches, the counterpart of the reference's
+        # jit caches keyed by shape (on by default on CUDA; off, that path
+        # issues every op eagerly and reads each merge loop's exit test back):
+        # Stage A by (variant, divs, N, D), Stages B and C of a chunk by
+        # (variant, divs, N, D, bucket capacities, want_tokens), the
+        # long-piece fallback's merge by (rows, width)
+        self.cold_cache = (
+            self.device.type == "cuda" if cold_cache is None else bool(cold_cache)
+        )
+        self._cold = {"stage_a": OrderedDict(), "stages_b_c": OrderedDict(),
+                      "flat": OrderedDict()}
+        self.cold_captures = 0          # units captured (CUDA)
+        self.cold_capture_seconds = 0.0
+        # spent in _capture's torch.cuda.empty_cache() (plans' captures)
+        self.empty_cache_seconds = 0.0
 
     @classmethod
     def from_oracle(cls, oracle: OracleEngine, *, device=None,
                     chunk_bytes: int = CHUNK_BYTES,
                     wide_min_lanes: int = 1 << 30,
-                    native_long: bool = True) -> "DeviceEngine":
+                    native_long: bool = True,
+                    cold_cache: Optional[bool] = None) -> "DeviceEngine":
         device = resolve_device(device)
         packed = vtables.load_packed(
             oracle.name, oracle.ranks, _maybe_asset_path(oracle.name)
         )
         return cls(oracle.name, oracle.pattern, packed, oracle,
                    device=device, chunk_bytes=chunk_bytes,
-                   wide_min_lanes=wide_min_lanes, native_long=native_long)
+                   wide_min_lanes=wide_min_lanes, native_long=native_long,
+                   cold_cache=cold_cache)
 
     def _native_engine(self):
         """The shared native host engine for long-piece chunks, looked up at
@@ -273,10 +346,43 @@ class DeviceEngine:
             self._native_looked_up = True
         return self._native
 
-    def _read(self, t: torch.Tensor) -> np.ndarray:
-        """Fetch a device tensor to the host (one host read)."""
+    def _read(self, t: torch.Tensor, pending=None) -> np.ndarray:
+        """Fetch a device tensor to the host (one host read). ``pending``:
+        the device round counters of a cold pass (:class:`ChunkResults`),
+        fetched in the same read and settled (:meth:`_settle_rounds`)."""
         self.host_reads += 1
-        return t.cpu().numpy()
+        if not pending:
+            return t.cpu().numpy()
+        flat = torch.cat([t.reshape(-1)] + [r.to(t.dtype) for _e, r in pending])
+        host = flat.cpu().numpy()
+        n = t.numel()
+        self._settle_rounds(pending, host[n:])
+        return host[:n].reshape(t.shape)
+
+    def _settle_rounds(self, pending, flat) -> None:
+        """Fill the chunk cache entries of ``pending`` ((entry, device round
+        counters) per ok-chunk of a cold pass run from the graph cache) from
+        their counters read back as ``flat``: per bucket an int, or a tuple
+        per phase where the bucket is wide. The rounds are added to
+        ``merge.MERGE_ROUNDS`` and the step kernel's runs to
+        ``loop.STEP_RUNS``."""
+        pos = 0
+        for entry, counters in pending:
+            ran = [int(x) for x in flat[pos : pos + counters.numel()]]
+            pos += counters.numel()
+            merge.MERGE_ROUNDS += sum(ran)
+            loop.count_steps(ran)
+            rounds = []
+            for _b, lanes, _cap, _n in entry["caps"]:
+                if lanes >= self.wide_min_lanes:
+                    k = len(merge_exact.phase_chain(lanes))
+                    rounds.append(tuple(ran[:k]))
+                else:
+                    k = 1
+                    rounds.append(ran[0])
+                ran = ran[k:]
+            entry["rounds"] = rounds
+        pending.clear()
 
     # ------------------------------------------------------------------
     # chunk planning (host, numpy)
@@ -391,9 +497,10 @@ class DeviceEngine:
         ``lanes >= wide_min_lanes``, else the sequential merge.
 
         ``rounds=None`` is the cold form (its exit tests are host reads,
-        counted in ``ops/merge`` where they are read); else what a cold call
-        returned last. Returns (cols, [(ids, active) per phase], rounds run:
-        an int, or a tuple per phase when wide).
+        counted in ``ops/merge`` where they are read); ``merge.DEVICE`` the
+        device loops; else what a cold call returned last. Returns (cols,
+        [(ids, active) per phase], rounds run: an int, or a tuple per phase
+        when wide; 0-d int32 tensors in the device form).
         """
         T = self.tables
         tests = merge.EXIT_TESTS
@@ -415,7 +522,10 @@ class DeviceEngine:
 
     def _stages_b_c(self, buf_dev, de_dev, t, caps, rounds, want_tokens: bool,
                     want_doc_counts: bool):
-        """Stage B over the buckets of ``caps`` and Stage C for one chunk.
+        """Stage B over the buckets of ``caps`` ((b, lanes, cap, live count:
+        an int or a 0-d device tensor) per bucket) and Stage C for one chunk.
+        ``rounds``: None (cold), ``merge.DEVICE``, or per bucket what a cold
+        pass returned.
 
         Returns (tokens or None, n_tokens, doc_counts or None, rounds run
         per bucket), all but the last on the device.
@@ -425,7 +535,7 @@ class DeviceEngine:
         for k, (b, lanes, cap, cnt) in enumerate(caps):
             cols, outs, r = self._merge_bucket(
                 buf_dev, t, b, lanes, cap, cnt,
-                None if rounds is None else rounds[k],
+                rounds if rounds is None or rounds == merge.DEVICE else rounds[k],
             )
             ran.append(r)
             for _ids_k, act_k in outs:
@@ -531,28 +641,37 @@ class DeviceEngine:
 
     def _process_chunks(self, texts, want_tokens: bool, plan=None):
         """Run the staged pipeline over all chunks with one batched host
-        read for the Stage A metadata (plus one on a capacity retry, and the
-        merge loops' exit tests). With a warmed plan (``plan.chunk_cache``
-        set by an earlier pass) nothing is read: see
-        :meth:`_process_chunks_cached`.
+        read for the Stage A metadata (plus one on a capacity retry). With a
+        warmed plan (``plan.chunk_cache`` set by an earlier pass) nothing is
+        read: see :meth:`_process_chunks_cached`.
 
-        Returns one result per chunk: ("ok", parts, tokens, n_tokens,
-        doc_counts) with device tensors, or ("fallback" or "native", buf,
-        doc_ends, parts).
+        With ``cold_cache`` (the default on CUDA) each chunk's Stage A, and
+        its Stages B and C with merge loops that run on the card, are
+        replays from the engine's graph cache (:meth:`_cold_stage_a`,
+        :meth:`_cold_stages_b_c`); the rounds those loops ran come back in
+        ``results.pending`` for the caller's last read. Without it every op
+        is issued eagerly and each merge loop reads its exit test back after
+        every round.
+
+        Returns a :class:`ChunkResults`, one result per chunk: ("ok", parts,
+        tokens, n_tokens, doc_counts) with device tensors, or ("fallback" or
+        "native", buf, doc_ends, parts).
         """
         if plan is None:
             plan = self.preload_corpus(texts)
         if getattr(plan, "chunk_cache", None) is not None:
-            return self._process_chunks_cached(plan, want_tokens)
+            return ChunkResults(self._process_chunks_cached(plan, want_tokens))
+        stage_a = self._cold_stage_a if self.cold_cache else self._stage_a
         staged = []
         for buf, doc_ends, parts, ascii_only, buf_dev, doc_ends_dev in plan:
             variant = "ascii" if ascii_only else "unicode"
             divs = _DIVS_PRIMARY if ascii_only else _DIVS_PRIMARY_UNICODE
-            table, meta = self._stage_a(variant, divs, buf_dev, doc_ends_dev)
+            table, meta = stage_a(variant, divs, buf_dev, doc_ends_dev)
             staged.append([buf, doc_ends, parts, variant, table, meta,
                            buf_dev, doc_ends_dev, divs])
+        results = ChunkResults()
         if not staged:
-            return []
+            return results
 
         # sync round 1: ONE fetch of all chunk metas
         metas = self._read(torch.stack([s[5] for s in staged]))
@@ -564,15 +683,15 @@ class DeviceEngine:
         retried = []
         for i, s in enumerate(staged):
             if int(metas[i][0]) & stage4.OVERFLOW_CAPACITY:
-                s[4], s[5] = self._stage_a(s[3], _DIVS_ROOMY, s[6], s[7])
+                s[4], s[5] = stage_a(s[3], _DIVS_ROOMY, s[6], s[7])
                 s[8] = _DIVS_ROOMY
                 retried.append(i)
         if retried:
+            self.capacity_retries += 1
             re_metas = self._read(torch.stack([staged[i][5] for i in retried]))
             for k, i in enumerate(retried):
                 metas[i] = re_metas[k]
 
-        results = []
         cache = []
         for i, (buf, doc_ends, parts, variant, t, _meta, buf_dev,
                 de_dev, divs) in enumerate(staged):
@@ -601,15 +720,136 @@ class DeviceEngine:
                 for b, lanes in enumerate(stage4.BUCKET_WIDTHS)
                 if bucket_counts[b]
             ]
-            tokens, n_tokens, doc_counts, ran = self._stages_b_c(
-                buf_dev, de_dev, t, caps, None, want_tokens, True
-            )
+            entry = {"kind": "ok", "variant": variant, "divs": divs,
+                     "caps": caps, "rounds": None}
+            if self.cold_cache:
+                tokens, n_tokens, doc_counts, counters = self._cold_stages_b_c(
+                    variant, divs, buf_dev, de_dev, t, caps, want_tokens
+                )
+                results.pending.append((entry, counters))
+            else:
+                tokens, n_tokens, doc_counts, entry["rounds"] = self._stages_b_c(
+                    buf_dev, de_dev, t, caps, None, want_tokens, True
+                )
             results.append(("ok", parts, tokens, n_tokens, doc_counts))
-            cache.append({"kind": "ok", "variant": variant, "divs": divs,
-                          "caps": caps, "rounds": ran})
+            cache.append(entry)
         if isinstance(plan, CorpusPlan):
             plan.chunk_cache = cache
         return results
+
+    # ------------------------------------------------------------------
+    # the un-planned path's graph cache
+    # ------------------------------------------------------------------
+
+    def _cold_run(self, kind: str, key, srcs, record, warm):
+        """Run the cached unit ``key`` of cache ``kind`` over ``srcs`` (the
+        chunk's input tensors) and return clones of its outputs (None
+        entries pass through).
+
+        The inputs are copied into the unit's static inputs. On CUDA a unit
+        seen for the first time is captured (:meth:`_capture`, its own
+        memory pool; ``warm(unit)`` runs first, eagerly, on the capture
+        stream, and its merge rounds are not counted) and every run replays
+        it; the least recently used unit past :data:`COLD_CACHE_MAX` is
+        dropped with its pools. On a CPU device the recorded body runs
+        eagerly.
+        """
+        cache = self._cold[kind]
+        unit = cache.get(key)
+        if unit is None:
+            unit = cache[key] = ColdUnit(key, [
+                torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in srcs
+            ])
+            while len(cache) > self.COLD_CACHE_MAX:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+        for dst, src in zip(unit.inputs, srcs):
+            dst.copy_(src)
+        if self.device.type != "cuda":
+            out = record(unit)
+        else:
+            if unit.graph is None:
+                def warm_once():
+                    rounds = merge.MERGE_ROUNDS
+                    warm(unit)
+                    merge.MERGE_ROUNDS = rounds
+
+                unit.capture_seconds, unit.pool_bytes = self._capture(
+                    warm_once, [unit], record, shared_pool=False
+                )
+                self.cold_captures += 1
+                self.cold_capture_seconds += unit.capture_seconds
+            out = self._replay(unit)
+        return [None if x is None else x.clone() for x in out]
+
+    def _cold_stage_a(self, variant: str, divs, buf_dev, de_dev):
+        """Stage A of one chunk from the cache, keyed by (variant, divs, N,
+        D): (piece table, meta) as :meth:`_stage_a` returns them, copies of
+        the unit's outputs that the chunk keeps until its Stages B and C."""
+        def record(u):
+            table, meta = self._stage_a(variant, divs, *u.inputs)
+            return tuple(table) + (meta,)
+
+        out = self._cold_run(
+            "stage_a", (variant, divs, buf_dev.shape[0], de_dev.shape[0]),
+            [buf_dev, de_dev], record, record,
+        )
+        return stage4.PieceTableV4(*out[:-1]), out[-1]
+
+    def _cold_stages_b_c(self, variant: str, divs, buf_dev, de_dev, t, caps,
+                         want_tokens: bool):
+        """Stages B and C of one chunk from the cache, keyed by (variant,
+        divs, N, D, (b, lanes, cap) per bucket, want_tokens): the live
+        counts and the bucket starts come from the piece table on the
+        device, so one unit serves every chunk whose counts quantize to the
+        same capacities. Its merges are device loops (``merge.DEVICE``).
+
+        Returns (tokens or None, n_tokens, doc_counts, int32 round counters
+        of its loops in bucket order, phase by phase where a bucket is
+        wide), all on the device.
+        """
+        sig = tuple((b, lanes, cap) for b, lanes, cap, _n in caps)
+
+        def body(u, rounds):
+            buf, de, *fields = u.inputs
+            tab = stage4.PieceTableV4(*fields)
+            live = [(b, lanes, cap, tab.bucket_counts[b]) for b, lanes, cap in sig]
+            return self._stages_b_c(buf, de, tab, live, rounds, want_tokens, True)
+
+        def record(u):
+            tokens, n_tokens, doc_counts, ran = body(u, merge.DEVICE)
+            counters = [r for x in ran for r in (x if isinstance(x, tuple) else (x,))]
+            counters = (torch.stack(counters) if counters
+                        else torch.zeros(0, dtype=torch.int32, device=self.device))
+            return tokens, n_tokens, doc_counts, counters
+
+        def warm(u):
+            # every op of the body once: one round a loop
+            body(u, [tuple(1 for _ in merge_exact.phase_chain(lanes))
+                     if lanes >= self.wide_min_lanes else 1
+                     for _b, lanes, _cap in sig])
+
+        return self._cold_run(
+            "stages_b_c",
+            (variant, divs, buf_dev.shape[0], de_dev.shape[0], sig, want_tokens),
+            [buf_dev, de_dev, *t], record, warm,
+        )
+
+    def cold_cache_stats(self) -> dict:
+        """What the un-planned path's caches hold: units (graphs on CUDA)
+        and the device memory reserved while they were captured, per cache
+        and in all, with the captures made and their seconds since the
+        engine was built."""
+        units = {k: list(c.values()) for k, c in self._cold.items()}
+        out = {k: {"units": len(us), "pool_bytes": sum(u.pool_bytes for u in us)}
+               for k, us in units.items()}
+        out["units"] = sum(len(us) for us in units.values())
+        out["pool_bytes"] = sum(u.pool_bytes for us in units.values() for u in us)
+        out["loops"] = sum(len(u.bodies) for us in units.values() for u in us)
+        out["captures"] = self.cold_captures
+        out["capture_seconds"] = self.cold_capture_seconds
+        return out
 
     # ------------------------------------------------------------------
     # the packed token fetch
@@ -736,7 +976,6 @@ class DeviceEngine:
         n_pieces = len(starts)
         counts = np.zeros(n_pieces, dtype=np.int64)
         piece_tokens: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
-        t = self.tables
 
         bucket_of = np.searchsorted(np.asarray(_BUCKETS), lens, side="left")
         oversized = bucket_of >= len(_BUCKETS)
@@ -756,15 +995,7 @@ class DeviceEngine:
             mat[: len(sel)] = np.where(lane_mask, rows, 0)
             blens[: len(sel)] = lens[sel]
 
-            tests = merge.EXIT_TESTS
-            ids, active = merge.merge_rows(
-                torch.from_numpy(mat).to(self.device),
-                torch.from_numpy(blens).to(self.device),
-                t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask,
-            )
-            self.host_reads += merge.EXIT_TESTS - tests
-            ids = self._read(ids[: len(sel)])
-            active = self._read(active[: len(sel)])
+            ids, active = self._merge_flat(mat, blens, len(sel))
             counts[sel] = active.sum(axis=1)
             piece_tokens.append((sel, ids, active))
 
@@ -789,6 +1020,42 @@ class DeviceEngine:
         for pi, toks in over_tokens.items():
             out[offsets[pi] : offsets[pi] + len(toks)] = toks
         return out, offsets
+
+    def _merge_flat(self, mat: np.ndarray, blens: np.ndarray, n: int):
+        """The fallback's merge of one bucket (``mat`` uint8[R, L] rows of
+        piece bytes, ``blens`` their lengths, the first ``n`` rows live):
+        (ids, active) of those rows on the host.
+
+        With ``cold_cache`` it is a replay of the cached unit of shape (R,
+        L) (R and L are quantized), whose loop runs on the card, and ONE
+        read brings back the ids, the active lanes and the rounds; without
+        it the loop is eager and reads each exit test back.
+        """
+        t = self.tables
+        args = (t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask)
+        srcs = [torch.from_numpy(mat), torch.from_numpy(blens)]
+        if not self.cold_cache:
+            tests = merge.EXIT_TESTS
+            ids, active, _ran = merge.merge_rows(
+                *(x.to(self.device) for x in srcs), *args)
+            self.host_reads += merge.EXIT_TESTS - tests
+            return self._read(ids[:n]), self._read(active[:n])
+        tests = merge.EXIT_TESTS
+        ids, active, rounds = self._cold_run(
+            "flat", mat.shape, srcs,
+            lambda u: merge.merge_rows(*u.inputs, *args, rounds=merge.DEVICE),
+            lambda u: merge.merge_rows(*u.inputs, *args, rounds=1),
+        )
+        # the plain version's exit tests (a CPU device); none on CUDA
+        self.host_reads += merge.EXIT_TESTS - tests
+        L = mat.shape[1]
+        host = self._read(torch.cat([
+            ids[:n].reshape(-1), active[:n].reshape(-1).to(torch.int32),
+            rounds.reshape(1),
+        ]))
+        merge.MERGE_ROUNDS += int(host[-1])
+        loop.count_steps(host[-1:])
+        return host[: n * L].reshape(n, L), host[n * L : 2 * n * L].reshape(n, L) != 0
 
     def _encode_chunk_fallback(self, buf, doc_ends, parts):
         """[(doc_idx, int32 tokens)] of one chunk with a piece over the
@@ -900,7 +1167,7 @@ class DeviceEngine:
             # skips it.
             small = self._read(self._pack_metas(
                 [r[3] for r in ok], [r[4] for r in ok]
-            ))
+            ), results.pending)
             n_tokens = [int(x) for x in small[: len(ok)]]
             doc_counts = []
             pos = len(ok)
@@ -1011,7 +1278,7 @@ class DeviceEngine:
         results = self._process_chunks(texts, want_tokens=False)
         ok = [r for r in results if r[0] == "ok"]
         if ok:
-            small = self._read(torch.cat([r[4] for r in ok]))
+            small = self._read(torch.cat([r[4] for r in ok]), results.pending)
         host = self._run_host_chunks(results)
         pos = 0
         for ri, res in enumerate(results):
@@ -1135,13 +1402,17 @@ class DeviceEngine:
             warm, blocks, self._block_sum
         )
 
-    def _capture(self, warm, units, record):
+    def _capture(self, warm, units, record, shared_pool: bool = True):
         """Capture ``record(unit)`` for every unit as one
         ``torch.cuda.CUDAGraph``, whose outputs become ``unit.out``, all on
-        the engine's capture stream and into one shared memory pool. The
+        the engine's capture stream. With ``shared_pool`` (a plan's graphs,
+        replayed in capture order) they share one memory pool, and the
         plan's device buffers are the graphs' inputs where they lie
-        (immutable and resident), so a replay copies nothing in. A capture
-        that fails raises.
+        (immutable and resident), so a replay copies nothing in. Without it
+        (the un-planned path's cache, replayed in any order) each graph has
+        a pool of its own, and the capture neither synchronises the card nor
+        flushes the allocators' caches as ``torch.cuda.graph`` does. A
+        capture that fails raises.
 
         ``warm()`` runs first, eagerly on the capture stream: it must make
         the scan kernel's scratch for that stream at its full size (the
@@ -1149,9 +1420,10 @@ class DeviceEngine:
         ``scan.SCRATCH`` as long as the process) and load every kernel the
         recording launches. What a recording adds to the engine's counters
         (Stage A runs, merge rounds) was recorded, not run: the counters are
-        restored, and the unit keeps its scans and rounds.
+        restored, and the unit keeps its scans and rounds, and the graphs of
+        its device loops' bodies (``unit.bodies``).
 
-        Returns (seconds spent, bytes the pool reserved).
+        Returns (seconds spent, bytes reserved while capturing).
         """
         if not units:
             return 0.0, 0
@@ -1160,22 +1432,37 @@ class DeviceEngine:
             self._capture_stream = torch.cuda.Stream(dev)
         stream = self._capture_stream
         t0 = time.time()
+        loop.prepare(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             warm()
         stream.synchronize()
-        # entering a capture empties the allocator's cache; done here first,
-        # what is reserved from now on is the graphs' pool
-        torch.cuda.empty_cache()
+        pool = None
+        if shared_pool:
+            # entering a capture empties the allocator's cache; done here
+            # first, what is reserved from now on is the graphs' pool
+            t = time.time()
+            torch.cuda.empty_cache()
+            self.empty_cache_seconds += time.time() - t
+            pool = torch.cuda.graph_pool_handle()
         reserved = torch.cuda.memory_reserved(dev)
-        pool = torch.cuda.graph_pool_handle()
+        loop.take_bodies()
         for u in units:
             scans, rounds = scan.CAPTURED_CALLS, merge.MERGE_ROUNDS
             runs = self.stage_a_runs
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
-                u.out = record(u)
+            if shared_pool:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    u.out = record(u)
+            else:
+                with torch.cuda.stream(stream):
+                    graph.capture_begin()
+                    try:
+                        u.out = record(u)
+                    finally:
+                        graph.capture_end()
             u.graph = graph
+            u.bodies = loop.take_bodies()
             u.n_scans = scan.CAPTURED_CALLS - scans
             u.n_rounds = merge.MERGE_ROUNDS - rounds
             # recorded, not run
@@ -1233,21 +1520,22 @@ class DeviceEngine:
         block of its own) and ONE scalar fetch per pass; chunks routed to
         the native engine or the long-piece fallback keep their path.
         """
-        dev_total, host_total = self._count_parts(texts, plan)
+        dev_total, host_total, pending = self._count_parts(texts, plan)
         if dev_total is None:
             return host_total
-        return int(self._read(dev_total)) + host_total
+        return int(self._read(dev_total, pending)) + host_total
 
     def _count_parts(self, texts, plan):
         """(the device chunks' total as a 0-d int64 tensor on the device or
-        None, the host chunks' total as an int), nothing of the first read
-        back."""
+        None, the host chunks' total as an int, the cold pass's pending round
+        counters to read with the total: see :class:`ChunkResults`), nothing
+        of the first read back."""
         if isinstance(plan, CorpusPlan) and plan.chunk_cache is not None:
             sums = [self._run_block(blk) for blk in self._mapped_count_groups(plan)]
-            results = [
+            results = ChunkResults(
                 (c["kind"], e[0], e[1], e[2])
                 for e, c in zip(plan, plan.chunk_cache) if c["kind"] != "ok"
-            ]
+            )
             for r in results:
                 self._count_route(r[0])
         else:
@@ -1258,7 +1546,7 @@ class DeviceEngine:
             len(toks) for lists in self._run_host_chunks(results).values()
             for _d, toks in lists
         )
-        return dev_total, host_total
+        return dev_total, host_total, results.pending
 
     # ------------------------------------------------------------------
     # batch decode

@@ -20,16 +20,18 @@ reference merge loop (``M/GptBytePairEncoding.java:200-275``):
    fraction of the matrix. A phase ends when every column fits the next
    width or nothing is left to merge, so compaction never drops a live span.
 
-The phase loops have the two forms of :func:`.merge.run_rounds`: cold, one
-flag read back per round; with ``rounds=`` (the per-phase counts a cold pass
-over the same bytes reported), exactly those rounds and nothing read back.
-Fewer rounds than the cold pass ran would let :func:`_compact` drop a live
-span, so cached counts are used as they are.
+The phase loops have the three forms of :func:`.merge.run_rounds`: cold,
+one flag read back per round; with ``rounds=`` (the per-phase counts a cold
+pass over the same bytes reported), exactly those rounds and nothing read
+back; with ``rounds=DEVICE``, each phase a loop tested on the device with
+its own stop test and its own round counter. Fewer rounds than the cold pass
+ran would let :func:`_compact` drop a live span, so cached counts are used
+as they are, and the device form's counters equal the cold form's counts.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -140,14 +142,16 @@ def phase_chain(lanes: int) -> Tuple[int, ...]:
 def merge_bucket_exact(
     buf, starts, lens, miss_sorted, group_start_b, count_b,
     byte_to_id, byte_pair_seed, pair_rows_cat, table_mask,
-    *, lanes: int, cap: int, rounds: Optional[Sequence[int]] = None,
+    *, lanes: int, cap: int, rounds=None,
 ):
     """Merge one wide bucket's pieces with the hybrid engine.
 
-    ``rounds``: None for the cold form, or the rounds to run in each phase
-    (what a cold call on the same bytes returned).
+    ``rounds``: None for the cold form, the rounds to run in each phase
+    (what a cold call on the same bytes returned), or ``merge.DEVICE``.
+    ``group_start_b`` and ``count_b`` may be ints or 0-d device tensors.
 
-    Returns (cols int32[cap] piece indices, outs, rounds run per phase)
+    Returns (cols int32[cap] piece indices, outs, rounds run per phase: ints,
+    or 0-d int32 tensors for ``DEVICE``)
     where outs is a list of (ids int32[W_k, cap], active bool[W_k, cap])
     per phase; each piece's surviving spans appear in exactly one phase
     output, in byte order.
@@ -162,10 +166,11 @@ def merge_bucket_exact(
     rank = merge.rank_from_state(ids, active, pair_rows_cat, table_mask)
 
     chain = phase_chain(lanes)
-    if rounds is not None and len(rounds) != len(chain):
+    device = rounds == merge.DEVICE
+    if rounds is not None and not device and len(rounds) != len(chain):
         raise ValueError(f"{len(chain)} phases, {len(rounds)} round counts")
     outs: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    ran: List[int] = []
+    ran = []
     for k, w in enumerate(chain):
         last = k + 1 == len(chain)
         if k > 0:
@@ -179,7 +184,7 @@ def merge_bucket_exact(
                 )
         ids, rank, active, n = merge.run_rounds(
             ids, rank, active, pair_rows_cat, table_mask,
-            None if rounds is None else rounds[k], more,
+            rounds if rounds is None or device else rounds[k], more,
         )
         ran.append(n)
         # emit everything once the run is globally done (no mergeable pair

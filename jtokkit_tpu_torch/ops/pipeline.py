@@ -19,7 +19,10 @@ def merge_bucket_v3(
     *, lanes: int, cap: int, rounds=None,
 ):
     """Exact merge of one bucket's pieces; ``cap`` columns, of which the
-    first ``count_b`` (an int or a 0-d tensor) are live. ``rounds`` is
+    first ``count_b`` are live, starting at ``group_start_b`` in
+    ``miss_sorted``. Both may be ints or 0-d device tensors sliced from the
+    piece table (as the reference's jit traces them), so one recorded graph
+    serves every count that quantizes to ``cap``. ``rounds`` is
     :func:`merge.merge_rows_t3`'s.
 
     Returns (cols int32[cap] piece indices, ids int32[lanes, cap],
@@ -39,7 +42,8 @@ def merge_bucket_v3(
 
 def bucket_matrix(buf, starts, lens, miss_sorted, group_start_b, count_b,
                   *, lanes: int, cap: int):
-    """One bucket's pieces as columns of a byte matrix.
+    """One bucket's pieces as columns of a byte matrix (``group_start_b``
+    and ``count_b`` ints or 0-d tensors).
 
     Returns (cols int32[cap] piece indices, live bool[cap], c_len int32[cap]
     piece lengths (0 where dead), mat_t uint8[lanes, cap]).

@@ -100,13 +100,13 @@ class ShardedTokenizer:
         if plan is None:
             plan = self.preload_corpus(texts or [])
         eng = self.engine
-        dev_total, host_total = eng._count_parts(None, plan.plan)
+        dev_total, host_total, pending = eng._count_parts(None, plan.plan)
         total = torch.full((1,), host_total, dtype=torch.int64, device=eng.device)
         if dev_total is not None:
             total += dev_total
         dist.all_reduce(total, group=self.group)
         self.collectives["all_reduce"] += 1
-        return int(eng._read(total)[0])
+        return int(eng._read(total, pending)[0])
 
     def encode_ordinary_batch_arrays(
         self, texts: Sequence[Optional[str]], plan=None

@@ -125,11 +125,11 @@ def test_merge_rows_matches_jax(name, shape):
     )
     t = port.tables
     rounds = merge.MERGE_ROUNDS
-    ids_t, act_t = merge.merge_rows(
+    ids_t, act_t, ran = merge.merge_rows(
         torch.from_numpy(mat), torch.from_numpy(lens), t.byte_to_id,
         t.byte_pair_id, t.pair_rows_cat, t.table_mask,
     )
-    assert 0 < merge.MERGE_ROUNDS - rounds < shape[1]
+    assert 0 < merge.MERGE_ROUNDS - rounds == ran < shape[1]
     assert tuple(ids_t.shape) == shape and ids_t.dtype == torch.int32
     np.testing.assert_array_equal(act_t.numpy(), np.asarray(act_j))
     np.testing.assert_array_equal(
@@ -153,7 +153,8 @@ def test_merge_rows_agrees_with_the_column_major_merge():
     mat, lens = _piece_matrix(128, 32, seed=1)
     t = port.tables
     args = (t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask)
-    ids_r, act_r = merge.merge_rows(torch.from_numpy(mat), torch.from_numpy(lens), *args)
+    ids_r, act_r, _ran = merge.merge_rows(
+        torch.from_numpy(mat), torch.from_numpy(lens), *args)
     ids_c, act_c, _ran = merge.merge_rows_t3(
         torch.from_numpy(mat.T.copy()), torch.from_numpy(lens), *args
     )
