@@ -508,41 +508,20 @@ def counted(engine, fn):
 
 def call_breakdown(engine, fn):
     """Host-clock split of one un-planned call of ``fn`` on ``engine``: the
-    chunk plan and upload (``preload_corpus``), then the span up to the end
-    of each host read (the first is the metas read after the Stage A
-    replays; an encode's second the token and document counts after Stages
-    B-C, its third the wait on the token copies), then the rest (unpack,
-    split, lists). Returns ms per span, in order."""
+    deltas of the engine's span counters (``<span>_ns``,
+    ``jtokkit_tpu_torch/utils/spans.py``) around the call, for each span the
+    call ran, in the order of ``engine/device.py``'s ``SPANS`` (the call
+    span ``encode`` or ``count`` first, its stages after it). Returns ms per
+    span, in order."""
     import torch
 
-    marks = []
-    preload, read, wait = engine.preload_corpus, engine._read, engine._wait_fetches
+    from jtokkit_tpu_torch.engine.device import SPANS
 
-    def stamp(name, real):
-        def wrapped(*args, **kwargs):
-            out = real(*args, **kwargs)
-            marks.append((name, time.perf_counter()))
-            return out
-        return wrapped
-
-    engine.preload_corpus = stamp("plan and upload", preload)
-    engine._read = stamp("read", read)
-    engine._wait_fetches = stamp("fetch wait", wait)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        marks.append(("rest", time.perf_counter()))
-    finally:
-        del engine.preload_corpus, engine._read, engine._wait_fetches
-    out, prev, n_read = [], t0, 0
-    for name, t in marks:
-        if name == "read":
-            n_read += 1
-            name = f"to read {n_read}"
-        out.append((name, (t - prev) * 1e3))
-        prev = t
-    return out
+    torch.cuda.synchronize()
+    before = {name: getattr(engine, f"{name}_ns") for name in SPANS}
+    fn()
+    return [(name, (getattr(engine, f"{name}_ns") - ns) / 1e6)
+            for name, ns in before.items() if getattr(engine, f"{name}_ns") != ns]
 
 
 def phase_main_path(card: str):

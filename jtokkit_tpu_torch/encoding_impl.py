@@ -21,6 +21,7 @@ from .api.params import GptBytePairEncodingParams
 from .engine.device import resolve_device
 from .engine.oracle import OracleEngine
 from .engine.presplit import BUILTIN_PATTERNS
+from .utils.spans import span
 
 
 class GptBytePairEncoding(Encoding):
@@ -170,9 +171,10 @@ class GptBytePairEncoding(Encoding):
         engine = self.device_engine()
         if engine is None:
             return [len(self.encode(t)) for t in texts]
-        for t in texts:
-            if t is not None:
-                self._oracle.check_special(t)
+        with span(engine, "special_check"):
+            for t in texts:
+                if t is not None:
+                    self._oracle.check_special(t)
         return engine.count_tokens_batch(texts)
 
     def decode_bytes_batch(self, token_lists) -> List[bytes]:

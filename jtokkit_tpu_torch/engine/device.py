@@ -95,6 +95,7 @@ from ..ops import (
     boundaries, classify, decode as decode_ops, loop, merge, merge_exact,
     pipeline, scan, stage4,
 )
+from ..utils.spans import span
 from ..vocab import tables as vtables
 from ..vocab.loader import asset_path
 from .oracle import OracleEngine, byte_pair_merge
@@ -106,6 +107,25 @@ CHUNK_BYTES = 1 << 20
 _BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 _MIN_ROWS = 128
 _DOC_SIZES = (64, 1024, 16384, 262144)
+
+# the named spans of the host path (``utils/spans.py``); the engine keeps
+# the host time of each in ``<name>_ns``. Per batch call: ``encode`` or
+# ``count`` (the whole call); inside it ``plan`` and ``upload`` (the chunk
+# plan and its copy to the device), ``stage_a`` (every chunk's Stage A
+# issue and the capacity retry) with ``metas_read`` inside, ``stages_b_c``
+# (routing and every chunk's Stages B-C issue), ``counts_read``, the
+# encode's ``fetch`` (pack and copies), ``fetch_wait`` and
+# ``unpack_split``, and ``host_chunks`` (native and fallback chunks) with
+# ``native_wait`` inside. ``capture`` is a cached unit's first capture,
+# inside the stage that met it; ``cached_dispatch`` the warmed plan's
+# dispatch. ``special_check`` is the facade's special-token check of a
+# batch count (``encoding_impl.py``).
+SPANS = (
+    "encode", "count", "special_check", "plan", "upload", "stage_a",
+    "metas_read", "stages_b_c", "counts_read", "fetch", "fetch_wait",
+    "unpack_split", "host_chunks", "native_wait", "capture",
+    "cached_dispatch",
+)
 
 # (piece_div, miss_div) capacity variants: the primary sizing covers natural
 # text; the roomy sizing suffices for ANY input (every piece is >= 1 byte,
@@ -315,9 +335,10 @@ class DeviceEngine:
         self._cold = {"stage_a": OrderedDict(), "stages_b_c": OrderedDict(),
                       "flat": OrderedDict()}
         self.cold_captures = 0          # units captured (CUDA)
-        self.cold_capture_seconds = 0.0
         # spent in _capture's torch.cuda.empty_cache() (plans' captures)
         self.empty_cache_seconds = 0.0
+        for name in SPANS:
+            setattr(self, f"{name}_ns", 0)
 
     @classmethod
     def from_oracle(cls, oracle: OracleEngine, *, device=None,
@@ -476,12 +497,15 @@ class DeviceEngine:
         metadata (see :class:`CorpusPlan`), so later passes read nothing
         back before their results.
         """
-        return CorpusPlan(
-            (buf, doc_ends, parts, ascii_only,
-             torch.from_numpy(buf).to(self.device),
-             torch.from_numpy(doc_ends).to(self.device))
-            for buf, doc_ends, parts, ascii_only in self._plan_chunks(texts)
-        )
+        with span(self, "plan"):
+            chunks = list(self._plan_chunks(texts))
+        with span(self, "upload"):
+            return CorpusPlan(
+                (buf, doc_ends, parts, ascii_only,
+                 torch.from_numpy(buf).to(self.device),
+                 torch.from_numpy(doc_ends).to(self.device))
+                for buf, doc_ends, parts, ascii_only in chunks
+            )
 
     def _stage_a(self, variant: str, divs, buf_dev, doc_ends_dev):
         self.stage_a_runs += 1
@@ -601,21 +625,22 @@ class DeviceEngine:
         (:meth:`_encode_graphs`); the results' device tensors are then the
         graphs' outputs, valid until the plan's next encode pass.
         """
-        if not (want_tokens and self._replays_encode(plan)):
-            return self._dispatch_eager(plan, want_tokens, fetch)
-        graphs = iter(self._encode_graphs(plan))
-        results = []
-        for (buf, doc_ends, parts, *_dev), c in zip(plan, plan.chunk_cache):
-            if c["kind"] != "ok":
-                self._count_route(c["kind"])
-                results.append((c["kind"], buf, doc_ends, parts))
-                continue
-            g = next(graphs)
-            *out, packed = self._replay(g)
-            if fetch:
-                out.append(self._copy_fetch(plan.pinned, g.oki, packed))
-            results.append(("ok", parts, *out))
-        return results
+        with span(self, "cached_dispatch"):
+            if not (want_tokens and self._replays_encode(plan)):
+                return self._dispatch_eager(plan, want_tokens, fetch)
+            graphs = iter(self._encode_graphs(plan))
+            results = []
+            for (buf, doc_ends, parts, *_dev), c in zip(plan, plan.chunk_cache):
+                if c["kind"] != "ok":
+                    self._count_route(c["kind"])
+                    results.append((c["kind"], buf, doc_ends, parts))
+                    continue
+                g = next(graphs)
+                *out, packed = self._replay(g)
+                if fetch:
+                    out.append(self._copy_fetch(plan.pinned, g.oki, packed))
+                results.append(("ok", parts, *out))
+            return results
 
     def _dispatch_eager(self, plan: CorpusPlan, want_tokens: bool,
                         fetch: bool = True):
@@ -661,6 +686,20 @@ class DeviceEngine:
             plan = self.preload_corpus(texts)
         if getattr(plan, "chunk_cache", None) is not None:
             return ChunkResults(self._process_chunks_cached(plan, want_tokens))
+        if not plan:
+            return ChunkResults()
+        with span(self, "stage_a"):
+            metas, staged = self._run_stage_a(plan)
+        with span(self, "stages_b_c"):
+            results, cache = self._run_stages_b_c(staged, metas, want_tokens)
+        if isinstance(plan, CorpusPlan):
+            plan.chunk_cache = cache
+        return results
+
+    def _run_stage_a(self, plan):
+        """Stage A of every chunk of ``plan``, then ONE host read of all the
+        chunks' metas (and a second Stage A and read of the chunks whose
+        tables overflowed). Returns (metas, the staged chunks)."""
         stage_a = self._cold_stage_a if self.cold_cache else self._stage_a
         staged = []
         for buf, doc_ends, parts, ascii_only, buf_dev, doc_ends_dev in plan:
@@ -669,12 +708,10 @@ class DeviceEngine:
             table, meta = stage_a(variant, divs, buf_dev, doc_ends_dev)
             staged.append([buf, doc_ends, parts, variant, table, meta,
                            buf_dev, doc_ends_dev, divs])
-        results = ChunkResults()
-        if not staged:
-            return results
 
         # sync round 1: ONE fetch of all chunk metas
-        metas = self._read(torch.stack([s[5] for s in staged]))
+        with span(self, "metas_read"):
+            metas = self._read(torch.stack([s[5] for s in staged]))
 
         # capacity-overflow retries (the roomy variant suffices for any
         # input). A truncated piece table also reads as PIECE_LEN (its last
@@ -688,10 +725,17 @@ class DeviceEngine:
                 retried.append(i)
         if retried:
             self.capacity_retries += 1
-            re_metas = self._read(torch.stack([staged[i][5] for i in retried]))
+            with span(self, "metas_read"):
+                re_metas = self._read(torch.stack([staged[i][5] for i in retried]))
             for k, i in enumerate(retried):
                 metas[i] = re_metas[k]
+        return metas, staged
 
+    def _run_stages_b_c(self, staged, metas, want_tokens: bool):
+        """Route every staged chunk by its meta and issue Stages B-C of
+        those that stay on the device. Returns (a :class:`ChunkResults`,
+        the plan's chunk cache entries), one of each per chunk."""
+        results = ChunkResults()
         cache = []
         for i, (buf, doc_ends, parts, variant, t, _meta, buf_dev,
                 de_dev, divs) in enumerate(staged):
@@ -733,9 +777,7 @@ class DeviceEngine:
                 )
             results.append(("ok", parts, tokens, n_tokens, doc_counts))
             cache.append(entry)
-        if isinstance(plan, CorpusPlan):
-            plan.chunk_cache = cache
-        return results
+        return results, cache
 
     # ------------------------------------------------------------------
     # the un-planned path's graph cache
@@ -775,11 +817,12 @@ class DeviceEngine:
                     warm(unit)
                     merge.MERGE_ROUNDS = rounds
 
-                unit.capture_seconds, unit.pool_bytes = self._capture(
-                    warm_once, [unit], record, shared_pool=False
-                )
+                with span(self, "capture") as s:
+                    _s, unit.pool_bytes = self._capture(
+                        warm_once, [unit], record, shared_pool=False
+                    )
+                unit.capture_seconds = s.ns / 1e9
                 self.cold_captures += 1
-                self.cold_capture_seconds += unit.capture_seconds
             out = self._replay(unit)
         return [None if x is None else x.clone() for x in out]
 
@@ -850,6 +893,12 @@ class DeviceEngine:
         out["captures"] = self.cold_captures
         out["capture_seconds"] = self.cold_capture_seconds
         return out
+
+    @property
+    def cold_capture_seconds(self) -> float:
+        """Seconds spent capturing the un-planned path's units: the
+        ``capture`` span's total."""
+        return self.capture_ns / 1e9
 
     # ------------------------------------------------------------------
     # the packed token fetch
@@ -1117,7 +1166,9 @@ class DeviceEngine:
             return {}
         natives = [i for i, r in enumerate(results) if r[0] == "native"]
         out = {}
-        with ThreadPoolExecutor(max(1, min(len(natives), os.cpu_count() or 2))) as pool:
+        with span(self, "host_chunks"), ThreadPoolExecutor(
+            max(1, min(len(natives), os.cpu_count() or 2))
+        ) as pool:
             if natives:
                 nat = self._native_engine()
                 futures = {
@@ -1127,8 +1178,9 @@ class DeviceEngine:
             for i, r in enumerate(results):
                 if r[0] == "fallback":
                     out[i] = self._encode_chunk_fallback(*r[1:])
-            for i in natives:
-                out[i] = futures[i].result()
+            with span(self, "native_wait"):
+                for i in natives:
+                    out[i] = futures[i].result()
         return out
 
     # ------------------------------------------------------------------
@@ -1150,62 +1202,67 @@ class DeviceEngine:
         """
         if texts is None and plan is None:
             return []
-        n_docs = (
-            len(texts) if texts is not None
-            else 1 + max(p for entry in plan for p in entry[2])
-        )
-        parts_out: List[List[np.ndarray]] = [[] for _ in range(n_docs)]
-        is_plan = isinstance(plan, CorpusPlan)
-        # as it stood before this pass: a pass that finds the counts cached
-        # has its fetches in flight already
-        cached = is_plan and plan.n_tokens is not None
-        results = self._process_chunks(texts, want_tokens=True, plan=plan)
-        ok = [r for r in results if r[0] == "ok"]
-        if ok and not cached:
-            # sync round 2a: ONE fetch of every chunk's n_tokens, then every
-            # chunk's doc_counts. Both are plan-stable, so a warmed plan
-            # skips it.
-            small = self._read(self._pack_metas(
-                [r[3] for r in ok], [r[4] for r in ok]
-            ), results.pending)
-            n_tokens = [int(x) for x in small[: len(ok)]]
-            doc_counts = []
-            pos = len(ok)
-            for r in ok:
-                doc_counts.append(small[pos : pos + len(r[1])])
-                pos += int(r[4].shape[0])
-            if is_plan:
-                plan.n_tokens, plan.doc_counts = n_tokens, doc_counts
-        elif ok:
-            n_tokens, doc_counts = plan.n_tokens, plan.doc_counts
-        # start every chunk's packed copy before consuming any
-        pinned = plan.pinned if is_plan else {}
-        fetches = [
-            r[5] if len(r) > 5
-            else self._copy_fetch(pinned, k, self._pack_fetch(r[2], n_tokens[k]))
-            for k, r in enumerate(ok)
-        ]
-        host = self._run_host_chunks(results)
-        if ok:
-            self._wait_fetches()
-        oki = 0
-        for ri, res in enumerate(results):
-            if res[0] != "ok":
-                for doc_idx, toks in host[ri]:
-                    parts_out[doc_idx].append(toks)
-                continue
-            parts = res[1]
-            tokens = self._consume_fetch(fetches[oki], n_tokens[oki])
-            splits = np.cumsum(doc_counts[oki][: len(parts)])[:-1]
-            for doc_idx, toks in zip(parts, np.split(tokens, splits)):
-                parts_out[doc_idx].append(toks)
-            oki += 1
-        empty = np.zeros((0,), np.int32)
-        return [
-            ps[0] if len(ps) == 1
-            else (np.concatenate(ps) if ps else empty)
-            for ps in parts_out
-        ]
+        with span(self, "encode"):
+            is_plan = isinstance(plan, CorpusPlan)
+            # as it stood before this pass: a pass that finds the counts
+            # cached has its fetches in flight already
+            cached = is_plan and plan.n_tokens is not None
+            results = self._process_chunks(texts, want_tokens=True, plan=plan)
+            ok = [r for r in results if r[0] == "ok"]
+            if ok and not cached:
+                # sync round 2a: ONE fetch of every chunk's n_tokens, then
+                # every chunk's doc_counts. Both are plan-stable, so a warmed
+                # plan skips it.
+                with span(self, "counts_read"):
+                    small = self._read(self._pack_metas(
+                        [r[3] for r in ok], [r[4] for r in ok]
+                    ), results.pending)
+                    n_tokens = [int(x) for x in small[: len(ok)]]
+                    doc_counts = []
+                    pos = len(ok)
+                    for r in ok:
+                        doc_counts.append(small[pos : pos + len(r[1])])
+                        pos += int(r[4].shape[0])
+                if is_plan:
+                    plan.n_tokens, plan.doc_counts = n_tokens, doc_counts
+            elif ok:
+                n_tokens, doc_counts = plan.n_tokens, plan.doc_counts
+            # start every chunk's packed copy before consuming any
+            pinned = plan.pinned if is_plan else {}
+            with span(self, "fetch"):
+                fetches = [
+                    r[5] if len(r) > 5
+                    else self._copy_fetch(pinned, k, self._pack_fetch(r[2], n_tokens[k]))
+                    for k, r in enumerate(ok)
+                ]
+            host = self._run_host_chunks(results)
+            if ok:
+                with span(self, "fetch_wait"):
+                    self._wait_fetches()
+            with span(self, "unpack_split"):
+                n_docs = (
+                    len(texts) if texts is not None
+                    else 1 + max(p for entry in plan for p in entry[2])
+                )
+                parts_out: List[List[np.ndarray]] = [[] for _ in range(n_docs)]
+                oki = 0
+                for ri, res in enumerate(results):
+                    if res[0] != "ok":
+                        for doc_idx, toks in host[ri]:
+                            parts_out[doc_idx].append(toks)
+                        continue
+                    parts = res[1]
+                    tokens = self._consume_fetch(fetches[oki], n_tokens[oki])
+                    splits = np.cumsum(doc_counts[oki][: len(parts)])[:-1]
+                    for doc_idx, toks in zip(parts, np.split(tokens, splits)):
+                        parts_out[doc_idx].append(toks)
+                    oki += 1
+                empty = np.zeros((0,), np.int32)
+                return [
+                    ps[0] if len(ps) == 1
+                    else (np.concatenate(ps) if ps else empty)
+                    for ps in parts_out
+                ]
 
     def encode_plan_tokens(self, plan: CorpusPlan) -> torch.Tensor:
         """The warmed encode kept on the device: every token id of the plan's
@@ -1274,23 +1331,25 @@ class DeviceEngine:
     def count_tokens_batch(self, texts: Sequence[Optional[str]]) -> List[int]:
         if not texts:
             return []
-        counts = [0] * len(texts)
-        results = self._process_chunks(texts, want_tokens=False)
-        ok = [r for r in results if r[0] == "ok"]
-        if ok:
-            small = self._read(torch.cat([r[4] for r in ok]), results.pending)
-        host = self._run_host_chunks(results)
-        pos = 0
-        for ri, res in enumerate(results):
-            if res[0] != "ok":
-                for doc_idx, toks in host[ri]:
-                    counts[doc_idx] += len(toks)
-                continue
-            parts, doc_counts_dev = res[1], res[4]
-            for doc_idx, c in zip(parts, small[pos : pos + len(parts)]):
-                counts[doc_idx] += int(c)
-            pos += int(doc_counts_dev.shape[0])
-        return counts
+        with span(self, "count"):
+            counts = [0] * len(texts)
+            results = self._process_chunks(texts, want_tokens=False)
+            ok = [r for r in results if r[0] == "ok"]
+            if ok:
+                with span(self, "counts_read"):
+                    small = self._read(torch.cat([r[4] for r in ok]), results.pending)
+            host = self._run_host_chunks(results)
+            pos = 0
+            for ri, res in enumerate(results):
+                if res[0] != "ok":
+                    for doc_idx, toks in host[ri]:
+                        counts[doc_idx] += len(toks)
+                    continue
+                parts, doc_counts_dev = res[1], res[4]
+                for doc_idx, c in zip(parts, small[pos : pos + len(parts)]):
+                    counts[doc_idx] += int(c)
+                pos += int(doc_counts_dev.shape[0])
+            return counts
 
     # ------------------------------------------------------------------
     # corpus count: the mapped count over a warmed plan
