@@ -11,7 +11,9 @@ methods). Per batch (documents -> token ids):
    on the device from the doc-end table.
 2. Stage A (``ops/stage4.stage_a_v4``) per chunk: classify, piece
    boundaries, piece table, word-table direct hits, miss list grouped by
-   length bucket.
+   length bucket. Without a plan, steps 1 and 2 are streamed: each chunk
+   is uploaded from pinned memory without a wait and its Stage A issued as
+   soon as it is packed, so the card runs it while the host packs the next.
 3. Host read 1: ONE fetch of every chunk's meta row. Chunks whose piece or
    miss table overflowed run Stage A again with the roomy capacities.
    Chunks with a piece longer than the largest merge bucket (4096 bytes of
@@ -107,12 +109,16 @@ CHUNK_BYTES = 1 << 20
 _BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 _MIN_ROWS = 128
 _DOC_SIZES = (64, 1024, 16384, 262144)
+# bytes the split search looks at a time (:meth:`DeviceEngine._safe_split`)
+_SPLIT_WINDOW = 1 << 16
 
 # the named spans of the host path (``utils/spans.py``); the engine keeps
 # the host time of each in ``<name>_ns``. Per batch call: ``encode`` or
 # ``count`` (the whole call); inside it ``plan`` and ``upload`` (the chunk
 # plan and its copy to the device), ``stage_a`` (every chunk's Stage A
-# issue and the capacity retry) with ``metas_read`` inside, ``stages_b_c``
+# issue and the capacity retry) with ``metas_read`` inside; an un-planned
+# call enters ``plan``, ``upload`` and ``stage_a`` once a chunk, in turns,
+# and its last ``stage_a`` holds the metas read too; ``stages_b_c``
 # (routing and every chunk's Stages B-C issue), ``counts_read``, the
 # encode's ``fetch`` (pack and copies), ``fetch_wait`` and
 # ``unpack_split``, and ``host_chunks`` (native and fallback chunks) with
@@ -300,6 +306,9 @@ class DeviceEngine:
         # cold passes that ran Stage A again for a capacity overflow (each
         # one more read of metas)
         self.capacity_retries = 0
+        # chunks of un-planned calls whose Stage A was issued before the
+        # call's last chunk was planned (n - 1 for a call of n chunks)
+        self.streamed_chunks = 0
         # fetches of device data by the host: every .cpu() / .item() of the
         # engine's paths (the cold merge loops' exit tests included) and the
         # one wait on a pass's token copies
@@ -413,50 +422,71 @@ class DeviceEngine:
     def _safe_split(data: bytes, limit: int) -> int:
         """Largest split point <= limit that is provably a piece boundary
         for both patterns: the previous byte is an ASCII letter/digit and
-        the byte at the split is CR/LF. Returns 0 if there is none."""
-        w = np.frombuffer(data[:limit], dtype=np.uint8)
-        if len(w) < 2:
-            return 0
-        is_crlf = (w[1:] == 0x0A) | (w[1:] == 0x0D)
-        prev = w[:-1]
-        is_alnum = (
-            ((prev >= 0x30) & (prev <= 0x39))
-            | ((prev >= 0x41) & (prev <= 0x5A))
-            | ((prev >= 0x61) & (prev <= 0x7A))
-        )
-        cand = np.flatnonzero(is_crlf & is_alnum)
-        return int(cand[-1]) + 1 if len(cand) else 0
+        the byte at the split is CR/LF. Returns 0 if there is none. The
+        search runs back from the limit a window at a time: the point
+        wanted is the last, and text with lines has one near the end."""
+        w = np.frombuffer(data, dtype=np.uint8, count=min(limit, len(data)))
+        hi = len(w)
+        while hi > 1:
+            lo = max(1, hi - _SPLIT_WINDOW)
+            prev, cur = w[lo - 1 : hi - 1], w[lo:hi]
+            is_crlf = (cur == 0x0A) | (cur == 0x0D)
+            is_alnum = (
+                ((prev >= 0x30) & (prev <= 0x39))
+                | ((prev >= 0x41) & (prev <= 0x5A))
+                | ((prev >= 0x61) & (prev <= 0x7A))
+            )
+            cand = np.flatnonzero(is_crlf & is_alnum)
+            if len(cand):
+                return lo + int(cand[-1])
+            hi = lo
+        return 0
+
+    def _doc_pieces(self, texts: Sequence[Optional[str]]):
+        """(doc index, UTF-8 bytes) of every document in order, made only
+        when asked for; a document over a chunk is cut at its safe split
+        points (:meth:`_safe_split`)."""
+        limit = self.chunk_bytes - 1
+        for i, t in enumerate(texts):
+            data = t.encode("utf-8") if t else b""
+            while len(data) > limit:
+                p = self._safe_split(data, limit)
+                if p == 0:
+                    break  # no safe point: single giant piece-dense doc
+                yield i, data[:p]
+                data = data[p:]
+            yield i, data
+
+    def _packed(self, texts: Sequence[Optional[str]]):
+        """The batch packed into chunks, lazily: (items, last) per chunk,
+        ``items`` its (doc index, bytes) and ``last`` whether it ends the
+        batch. A document is encoded and cut only when the packing reaches
+        it, and a chunk comes out as soon as the next piece does not fit, so
+        the caller can start on a chunk while the rest of the batch is
+        unplanned. Greedy packing looks only back, so the chunks are those
+        of planning the whole batch first."""
+        limit = self.chunk_bytes
+        chunk: List = []
+        size = 0
+        for item in self._doc_pieces(texts):
+            extra = len(item[1]) + (1 if chunk else 0)
+            if chunk and size + extra > limit:
+                yield chunk, False
+                chunk, size = [], 0
+            chunk.append(item)
+            size += len(item[1]) + 1
+        if chunk:
+            yield chunk, True
 
     def _plan_chunks(self, texts: Sequence[Optional[str]]):
-        """Split the batch into chunks.
+        """Split the batch into chunks, lazily (:meth:`_packed`).
 
         Yields (buf, doc_ends, parts, ascii_only) where parts[i] = original
         doc index of chunk-document i (one doc may span several
         chunk-documents across chunks, in order).
         """
-        limit = self.chunk_bytes
-        pending = []  # (doc_idx, bytes)
-        for i, t in enumerate(texts):
-            data = t.encode("utf-8") if t else b""
-            while len(data) > limit - 1:
-                p = self._safe_split(data, limit - 1)
-                if p == 0:
-                    break  # no safe point: single giant piece-dense doc
-                pending.append((i, data[:p]))
-                data = data[p:]
-            pending.append((i, data))
-
-        chunk: List = []
-        size = 0
-        for item in pending:
-            extra = len(item[1]) + (1 if chunk else 0)
-            if chunk and size + extra > limit:
-                yield self._build_chunk(chunk)
-                chunk, size = [], 0
-            chunk.append(item)
-            size += len(item[1]) + 1
-        if chunk:
-            yield self._build_chunk(chunk)
+        for items, _last in self._packed(texts):
+            yield self._build_chunk(items)
 
     def _build_chunk(self, items):
         total = sum(len(d) for (_i, d) in items) + len(items) - 1
@@ -668,7 +698,9 @@ class DeviceEngine:
         """Run the staged pipeline over all chunks with one batched host
         read for the Stage A metadata (plus one on a capacity retry). With a
         warmed plan (``plan.chunk_cache`` set by an earlier pass) nothing is
-        read: see :meth:`_process_chunks_cached`.
+        read: see :meth:`_process_chunks_cached`. Without a plan each
+        chunk's Stage A is issued as soon as the chunk is planned
+        (:meth:`_stream_stage_a`).
 
         With ``cold_cache`` (the default on CUDA) each chunk's Stage A, and
         its Stages B and C with merge loops that run on the card, are
@@ -682,34 +714,70 @@ class DeviceEngine:
         tokens, n_tokens, doc_counts) with device tensors, or ("fallback" or
         "native", buf, doc_ends, parts).
         """
-        if plan is None:
-            plan = self.preload_corpus(texts)
         if getattr(plan, "chunk_cache", None) is not None:
             return ChunkResults(self._process_chunks_cached(plan, want_tokens))
-        if not plan:
+        if plan is None:
+            staged, metas = self._stream_stage_a(texts)
+        else:
+            with span(self, "stage_a"):
+                staged = [self._stage_chunk(*entry) for entry in plan]
+                metas = self._read_metas(staged) if staged else None
+        if not staged:
             return ChunkResults()
-        with span(self, "stage_a"):
-            metas, staged = self._run_stage_a(plan)
         with span(self, "stages_b_c"):
             results, cache = self._run_stages_b_c(staged, metas, want_tokens)
         if isinstance(plan, CorpusPlan):
             plan.chunk_cache = cache
         return results
 
-    def _run_stage_a(self, plan):
-        """Stage A of every chunk of ``plan``, then ONE host read of all the
-        chunks' metas (and a second Stage A and read of the chunks whose
-        tables overflowed). Returns (metas, the staged chunks)."""
-        stage_a = self._cold_stage_a if self.cold_cache else self._stage_a
+    def _stream_stage_a(self, texts):
+        """The un-planned call's chunks planned, uploaded and their Stage A
+        issued one by one, so the card runs a chunk's Stage A while the host
+        plans the next (``streamed_chunks`` counts the chunks issued before
+        the last was planned); then the metas read (:meth:`_read_metas`),
+        in the last chunk's ``stage_a`` span. The uploads copy from pinned
+        memory without a wait (:meth:`_upload`): an upload that
+        synchronised would wait for the Stage A issued before it. Returns
+        (the staged chunks, their metas; None for an empty batch)."""
+        packed = self._packed(texts)
         staged = []
-        for buf, doc_ends, parts, ascii_only, buf_dev, doc_ends_dev in plan:
-            variant = "ascii" if ascii_only else "unicode"
-            divs = _DIVS_PRIMARY if ascii_only else _DIVS_PRIMARY_UNICODE
-            table, meta = stage_a(variant, divs, buf_dev, doc_ends_dev)
-            staged.append([buf, doc_ends, parts, variant, table, meta,
-                           buf_dev, doc_ends_dev, divs])
+        while True:
+            with span(self, "plan"):
+                step = next(packed, None)
+                if step is None:
+                    return staged, None
+                items, last = step
+                buf, doc_ends, parts, ascii_only = self._build_chunk(items)
+            with span(self, "upload"):
+                buf_dev, de_dev = self._upload(buf), self._upload(doc_ends)
+            with span(self, "stage_a"):
+                staged.append(self._stage_chunk(
+                    buf, doc_ends, parts, ascii_only, buf_dev, de_dev))
+                if last:
+                    return staged, self._read_metas(staged)
+            self.streamed_chunks += 1
 
-        # sync round 1: ONE fetch of all chunk metas
+    def _stage_chunk(self, buf, doc_ends, parts, ascii_only, buf_dev, de_dev):
+        """Issue one chunk's Stage A at its primary capacities. Returns its
+        staged entry: [buf, doc_ends, parts, variant, piece table, meta,
+        buf_dev, de_dev, divs]."""
+        s = [buf, doc_ends, parts, "ascii" if ascii_only else "unicode", None,
+             None, buf_dev, de_dev, None]
+        self._issue_stage_a(s, _DIVS_PRIMARY if ascii_only else _DIVS_PRIMARY_UNICODE)
+        return s
+
+    def _issue_stage_a(self, s, divs) -> None:
+        """Stage A of staged entry ``s`` at capacity divisors ``divs``, from
+        the graph cache with ``cold_cache``, else eagerly; fills the entry's
+        table, meta and divs."""
+        run = self._cold_stage_a if self.cold_cache else self._stage_a
+        s[4], s[5] = run(s[3], divs, s[6], s[7])
+        s[8] = divs
+
+    def _read_metas(self, staged):
+        """ONE host read of every staged chunk's meta (and a second Stage A
+        and read of the chunks whose tables overflowed). Returns the
+        metas."""
         with span(self, "metas_read"):
             metas = self._read(torch.stack([s[5] for s in staged]))
 
@@ -717,19 +785,17 @@ class DeviceEngine:
         # input). A truncated piece table also reads as PIECE_LEN (its last
         # piece runs to the buffer's end), so that bit is trusted only from
         # a run without CAPACITY.
-        retried = []
-        for i, s in enumerate(staged):
-            if int(metas[i][0]) & stage4.OVERFLOW_CAPACITY:
-                s[4], s[5] = stage_a(s[3], _DIVS_ROOMY, s[6], s[7])
-                s[8] = _DIVS_ROOMY
-                retried.append(i)
+        retried = [i for i in range(len(staged))
+                   if int(metas[i][0]) & stage4.OVERFLOW_CAPACITY]
+        for i in retried:
+            self._issue_stage_a(staged[i], _DIVS_ROOMY)
         if retried:
             self.capacity_retries += 1
             with span(self, "metas_read"):
                 re_metas = self._read(torch.stack([staged[i][5] for i in retried]))
             for k, i in enumerate(retried):
                 metas[i] = re_metas[k]
-        return metas, staged
+        return metas
 
     def _run_stages_b_c(self, staged, metas, want_tokens: bool):
         """Route every staged chunk by its meta and issue Stages B-C of
@@ -1310,11 +1376,16 @@ class DeviceEngine:
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, copied without a wait (from
-        pinned memory) on CUDA."""
+        pinned memory) on CUDA. The pinned block comes from PyTorch's
+        caching host allocator, which does not hand it out again before the
+        copy that reads it has run; numpy fills it (``Tensor.pin_memory()``
+        took 1.5-3 times as long on the card's host)."""
         t = torch.from_numpy(arr)
         if self.device.type != "cuda":
             return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        pinned.numpy()[...] = arr
+        return pinned.to(self.device, non_blocking=True)
 
     @staticmethod
     def _pack_metas(ns, dcs):

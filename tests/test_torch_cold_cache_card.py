@@ -117,3 +117,40 @@ def test_a_failed_capture_raises():
     loop.prepare(x.device)
     with pytest.raises(RuntimeError, match="not capturing"):
         loop.while_loop(lambda x: x.amax() > 0, lambda x: (x - 1,), (x,), bool)
+
+
+@pytest.mark.gpu
+def test_streamed_call_issues_without_a_synchronise():
+    """An un-planned 4 MiB call after a warm-up call of the same shapes (so
+    that no capture falls inside): from its first plan step to its last
+    Stage A issue nothing synchronises the card (torch's sync debug mode
+    raises at a synchronising call), so no upload waits for the Stage A
+    issued before it. Its answers equal the eager path's."""
+    _orc, cached, eager = _engines()
+    docs = corpus.generate(4, seed=14, flavor="english")
+    want = [a.tolist() for a in eager.encode_ordinary_batch_arrays(docs)]
+    cached.encode_ordinary_batch_arrays(docs)
+    real_stream, real_read = cached._stream_stage_a, cached._read_metas
+
+    def guarded(texts):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_stream(texts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def read(staged):
+        # the metas read after the last issue is the call's first wait
+        torch.cuda.set_sync_debug_mode("default")
+        return real_read(staged)
+
+    cached._stream_stage_a, cached._read_metas = guarded, read
+    try:
+        streamed, captures = cached.streamed_chunks, cached.cold_captures
+        got = [a.tolist() for a in cached.encode_ordinary_batch_arrays(docs)]
+        n = sum(1 for _ in cached._plan_chunks(docs))
+    finally:
+        del cached._stream_stage_a, cached._read_metas
+    assert n >= 4 and cached.streamed_chunks - streamed == n - 1
+    assert cached.cold_captures == captures
+    assert got == want
