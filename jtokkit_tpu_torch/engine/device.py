@@ -72,7 +72,11 @@ graph captured once per plan and replayed per pass, and one scalar fetch.
 On a CPU device both bodies run eagerly. All cached values derive from the
 plan's immutable buffers, so reuse is exact; tokens are computed from the
 bytes on every pass.
-``host_reads`` counts every fetch of device data.
+``host_reads`` counts every fetch of device data. ``merge_rounds`` counts
+the rounds the byte-pair merge loops ran (the device loops' come back with
+the call's last read), and ``miss_pieces`` the pieces sent to them: the
+bucket counts, from the metas, of every chunk routed to Stages B-C of an
+un-planned or first pass. Neither adds a read.
 
 Batch decode (token ids -> bytes) concatenates the lists, runs
 ``ops/decode.decode_tokens`` once and fetches the bytes once; lists with a
@@ -306,6 +310,12 @@ class DeviceEngine:
         # cold passes that ran Stage A again for a capacity overflow (each
         # one more read of metas)
         self.capacity_retries = 0
+        # rounds the byte-pair merge loops ran (:data:`merge.MERGE_ROUNDS`,
+        # per engine: the eager loops as they run, the device loops when
+        # their counters are read back), and the pieces sent to them (the
+        # bucket counts of every chunk routed to Stages B-C, from the metas)
+        self.merge_rounds = 0
+        self.miss_pieces = 0
         # chunks of un-planned calls whose Stage A was issued before the
         # call's last chunk was planned (n - 1 for a call of n chunks)
         self.streamed_chunks = 0
@@ -394,13 +404,14 @@ class DeviceEngine:
         counters) per ok-chunk of a cold pass run from the graph cache) from
         their counters read back as ``flat``: per bucket an int, or a tuple
         per phase where the bucket is wide. The rounds are added to
-        ``merge.MERGE_ROUNDS`` and the step kernel's runs to
-        ``loop.STEP_RUNS``."""
+        ``merge.MERGE_ROUNDS`` and ``merge_rounds``, and the step kernel's
+        runs to ``loop.STEP_RUNS``."""
         pos = 0
         for entry, counters in pending:
             ran = [int(x) for x in flat[pos : pos + counters.numel()]]
             pos += counters.numel()
             merge.MERGE_ROUNDS += sum(ran)
+            self.merge_rounds += sum(ran)
             loop.count_steps(ran)
             rounds = []
             for _b, lanes, _cap, _n in entry["caps"]:
@@ -557,7 +568,7 @@ class DeviceEngine:
         when wide; 0-d int32 tensors in the device form).
         """
         T = self.tables
-        tests = merge.EXIT_TESTS
+        tests, rounds_before = merge.EXIT_TESTS, merge.MERGE_ROUNDS
         if lanes >= self.wide_min_lanes:
             cols, outs, ran = merge_exact.merge_bucket_exact(
                 buf_dev, t.starts, t.lens, t.miss_sorted, t.group_start[b],
@@ -572,6 +583,7 @@ class DeviceEngine:
             )
             outs = [(ids, active)]
         self.host_reads += merge.EXIT_TESTS - tests
+        self.merge_rounds += merge.MERGE_ROUNDS - rounds_before
         return cols, outs, ran
 
     def _stages_b_c(self, buf_dev, de_dev, t, caps, rounds, want_tokens: bool,
@@ -830,6 +842,7 @@ class DeviceEngine:
                 for b, lanes in enumerate(stage4.BUCKET_WIDTHS)
                 if bucket_counts[b]
             ]
+            self.miss_pieces += sum(n for _b, _l, _c, n in caps)
             entry = {"kind": "ok", "variant": variant, "divs": divs,
                      "caps": caps, "rounds": None}
             if self.cold_cache:
@@ -879,9 +892,9 @@ class DeviceEngine:
         else:
             if unit.graph is None:
                 def warm_once():
-                    rounds = merge.MERGE_ROUNDS
+                    rounds, mine = merge.MERGE_ROUNDS, self.merge_rounds
                     warm(unit)
-                    merge.MERGE_ROUNDS = rounds
+                    merge.MERGE_ROUNDS, self.merge_rounds = rounds, mine
 
                 with span(self, "capture") as s:
                     _s, unit.pool_bytes = self._capture(
@@ -1151,9 +1164,10 @@ class DeviceEngine:
         srcs = [torch.from_numpy(mat), torch.from_numpy(blens)]
         if not self.cold_cache:
             tests = merge.EXIT_TESTS
-            ids, active, _ran = merge.merge_rows(
+            ids, active, ran = merge.merge_rows(
                 *(x.to(self.device) for x in srcs), *args)
             self.host_reads += merge.EXIT_TESTS - tests
+            self.merge_rounds += ran
             return self._read(ids[:n]), self._read(active[:n])
         tests = merge.EXIT_TESTS
         ids, active, rounds = self._cold_run(
@@ -1169,6 +1183,7 @@ class DeviceEngine:
             rounds.reshape(1),
         ]))
         merge.MERGE_ROUNDS += int(host[-1])
+        self.merge_rounds += int(host[-1])
         loop.count_steps(host[-1:])
         return host[: n * L].reshape(n, L), host[n * L : 2 * n * L].reshape(n, L) != 0
 
@@ -1579,7 +1594,7 @@ class DeviceEngine:
         loop.take_bodies()
         for u in units:
             scans, rounds = scan.CAPTURED_CALLS, merge.MERGE_ROUNDS
-            runs = self.stage_a_runs
+            runs, mine = self.stage_a_runs, self.merge_rounds
             graph = torch.cuda.CUDAGraph()
             if shared_pool:
                 with torch.cuda.graph(graph, pool=pool, stream=stream):
@@ -1596,7 +1611,7 @@ class DeviceEngine:
             u.n_scans = scan.CAPTURED_CALLS - scans
             u.n_rounds = merge.MERGE_ROUNDS - rounds
             # recorded, not run
-            self.stage_a_runs = runs
+            self.stage_a_runs, self.merge_rounds = runs, mine
             merge.MERGE_ROUNDS = rounds
         return time.time() - t0, torch.cuda.memory_reserved(dev) - reserved
 
