@@ -11,8 +11,8 @@
 Phases (each raises on failure, and then no result line is printed):
 
 1. Card: requires CUDA; prints nvidia-smi's name and power limit.
-2. Build: compiles the kernels (jtokkit_tpu_torch/csrc/scan.cu, gather.cu
-   and loop.cu, the device loop's step kernel) and the native host engine
+2. Build: compiles the kernels (jtokkit_tpu_torch/csrc/scan.cu, gather.cu,
+   loop.cu, the device loop's step kernel, and merge.cu) and the native host engine
    (csrc/jtokkit_native.cc) from the checkout, one nvcc or g++ each, started
    together; prints the build times and each kernel's registers and shared
    memory.
@@ -34,25 +34,27 @@ Phases (each raises on failure, and then no result line is printed):
    device merge, not the host), with its graph cache (the default on a
    card). Per corpus (16 MB english, 2 MB mixed, 1 MB cjk; 1 MiB chunks): a
    first encode_ordinary_batch and count_tokens_batch (each shape seen for
-   the first time is captured: Stage A, Stages B-C with their merge loops
-   as CUDA graph WHILE nodes), then a second encode, count and
+   the first time is captured: Stage A, Stages B-C with one merge kernel a
+   bucket), then a second encode, count and
    encode_ordinary_batch_arrays over a fresh seed of the flavor, which must
    replay: at most 3 host reads (encode) or 2 (count) plus one per
    capacity-retry batch, no exit test read back, no eager Stage A run, no
-   scan launch by the wrapper, no capture; their merge rounds, read from
-   the loops' device counters, tokens and counts equal the same calls on an
-   engine without the cache (every op eager, one exit test read back a
-   round), timed beside them. MB/s of every call, the cache's graphs and
+   scan launch by the wrapper, no capture, merge kernel runs; their merge
+   rounds, read from the device counters, tokens and counts equal the same
+   calls on an engine without the cache (every op eager, each bucket's
+   rounds read back), timed beside them. MB/s of every call, the cache's graphs and
    pool bytes after each corpus. Tokens are held against the host oracle
    on a >= 1 MB sample of both batches and on the four conformance CSVs
    (through the registry's cached path, no exit test); counts against
    token lengths; the scan counters show 5 kernel launches per eager cl100k
    Stage A run (the warm-ups before a capture) and no plain-version call.
-5b. The device loop against its plain version at the main path's shapes:
-   whole bucket merges of one english and one cjk chunk (narrow, and wide
-   where the bucket has 64 lanes or more), the loop as one graph replayed
-   against the loop that reads its test back; ids, active lanes and rounds
-   equal; device ms of both.
+5b. The merge kernel (jtokkit_tpu_torch/csrc/merge.cu) at the main path's
+   bucket shapes, english 8 x 2048 and 16 x 512, cjk 384 x 1024 and
+   4096 x 512 (the first chunk of one english and one cjk corpus): the
+   kernel alone, the bucket as the engine replays it, the bucket's plain
+   loop as one CUDA graph WHILE node (the yardstick, on no path of the
+   engine) and the plain loop reading its test back; ids, active lanes and
+   rounds equal; device ms of each beside the bound.
 6. Decode: the tokens of the three corpora go back through
    decode_bytes_batch; the bytes equal the documents' UTF-8 and the numpy
    host decode, with one scan launch per call; special and unknown ids behave
@@ -494,7 +496,7 @@ def engine_counters(engine):
             "merge_rounds": merge.MERGE_ROUNDS, "stage_a_runs": engine.stage_a_runs,
             "scan_launches": scan.KERNEL_LAUNCHES, "graph_replays": engine.graph_replays,
             "captures": engine.cold_captures, "retries": engine.capacity_retries,
-            "loop_steps": loop.STEP_RUNS}
+            "loop_steps": loop.STEP_RUNS, "merge_kernel_runs": engine.merge_kernel_runs}
 
 
 def counted(engine, fn):
@@ -563,6 +565,7 @@ def phase_main_path(card: str):
     merge.MERGE_ROUNDS = 0
     loop.STEP_RUNS = 0
     launches = runs = 0  # the cached engine's; the eager reference's are not
+    merge_runs0 = engine.merge_kernel_runs
     exit_tests0, fallback0 = merge.EXIT_TESTS, engine.fallback_chunks
     results, summary = {}, {}
     oracle = enc.oracle
@@ -606,7 +609,7 @@ def phase_main_path(card: str):
             if c["host_reads"] > limit + c["retries"] or c["exit_tests"] != 0 \
                     or c["stage_a_runs"] != 0 or c["scan_launches"] != 0 or c["captures"] != 0:
                 raise AssertionError(f"{name}: second un-planned {label} did not replay: {c}")
-            if c["merge_rounds"] != eager_c["merge_rounds"] or c["loop_steps"] <= 0:
+            if c["merge_rounds"] != eager_c["merge_rounds"] or c["merge_kernel_runs"] <= 0:
                 raise AssertionError(
                     f"{name}: second {label}: {c['merge_rounds']} merge rounds from the device "
                     f"counters, {eager_c['merge_rounds']} in the eager path")
@@ -644,7 +647,8 @@ def phase_main_path(card: str):
                 f"{c['stage_a_runs']} eager Stage A runs, {c['scan_launches']} scan "
                 f"launches by the wrapper, {c['graph_replays']} replays, "
                 f"{c['merge_rounds']} merge rounds from the device counters "
-                f"({c['loop_steps']} step-kernel runs) [{card}]")
+                f"({c['merge_kernel_runs']} merge kernel runs, {c['loop_steps']} step-kernel "
+                f"runs) [{card}]")
         log(f"  eager, same bytes: encode {row['eager_encode_mb_s']:.2f} MB/s "
             f"({e_enc['host_reads']} host reads, {e_enc['exit_tests']} exit tests, "
             f"{e_enc['merge_rounds']} merge rounds), count {row['eager_count_mb_s']:.2f} MB/s "
@@ -690,27 +694,34 @@ def phase_main_path(card: str):
     breakdown = summary.pop("breakdown")
     # every cached call of the phase, the conformance rows' too
     return enc, engine, launches, results, {"corpora": summary, "loop_steps": loop.STEP_RUNS,
+                                            "merge_kernel_runs":
+                                                engine.merge_kernel_runs - merge_runs0,
                                             "breakdown_ms": breakdown}
 
 
 def phase_loop(engine, card: str):
-    """The device loop (csrc/loop.cu through ops/loop.py) against its plain
-    version, the loop that reads its exit test back after every round, at
-    the main path's shapes: whole bucket merges (``merge_rows_t3``, and
-    ``merge_bucket_exact`` where the bucket is wide) of one english and one
-    cjk chunk, the device form as one CUDA graph replayed, the plain form
-    eagerly; ids, active lanes and rounds equal (exact)."""
+    """The merge kernel (csrc/merge.cu through ops/merge.py) at the main
+    path's bucket shapes: english 8 x 2048 and 16 x 512, cjk 384 x 1024 and
+    4096 x 512, from the first chunk of one english and one cjk corpus.
+    Each bucket's merge timed four ways, outputs equal (exact): the kernel
+    alone (one launch on the bucket's matrix), the bucket as the engine
+    replays it (its matrix gathered, then the kernel: one graph), the
+    bucket with the plain loop as one CUDA graph WHILE node
+    (``merge_rows_t3_plain(rounds=DEVICE)``, csrc/loop.cu: the yardstick,
+    on no path of the engine), and the plain loop eagerly (one exit test
+    read back a round); beside the bytes' bound."""
     import torch
 
     from jtokkit_tpu_torch.engine import device as dev_mod
-    from jtokkit_tpu_torch.ops import merge, merge_exact, pipeline, stage4
+    from jtokkit_tpu_torch.ops import merge, pipeline, stage4
     from jtokkit_tpu_torch.scripts.profile_gather import event_ms
     from jtokkit_tpu_torch.utils import corpus
 
     T = engine.tables
+    tables = (T.byte_to_id, T.byte_pair_id, T.pair_rows_cat, T.table_mask)
     shapes = []
     max_err = 0
-    for flavor, seed in (("english", 5), ("cjk", 5)):
+    for flavor, seed, widths in (("english", 5, (8, 16)), ("cjk", 5, (384, 4096))):
         plan = engine.preload_corpus(corpus.generate(1.2, seed=seed, flavor=flavor))
         buf, _de, _parts, ascii_only, buf_dev, de_dev = plan[0]
         divs = dev_mod._DIVS_PRIMARY if ascii_only else dev_mod._DIVS_PRIMARY_UNICODE
@@ -719,58 +730,62 @@ def phase_loop(engine, card: str):
         counts = meta.cpu().numpy()[2:]
         for b, lanes in enumerate(stage4.BUCKET_WIDTHS):
             cnt = int(counts[b])
-            if cnt == 0 or (flavor == "english") != (lanes <= 32):
+            if cnt == 0 or lanes not in widths:
                 continue
             cap = engine._bucket_cap(len(buf), lanes, cnt)
-            for wide in (False, True) if lanes >= 64 else (False,):
-                def run(rounds, cnt_arg, b=b, lanes=lanes, cap=cap, wide=wide):
-                    if wide:
-                        cols, outs, ran = merge_exact.merge_bucket_exact(
-                            buf_dev, tab.starts, tab.lens, tab.miss_sorted,
-                            tab.group_start[b], cnt_arg, T.byte_to_id, T.byte_pair_seed,
-                            T.pair_rows_cat, T.table_mask, lanes=lanes, cap=cap,
-                            rounds=rounds)
-                        return [x for o in outs for x in o], list(ran)
-                    cols, ids, act, ran = pipeline.merge_bucket_v3(
-                        buf_dev, tab.starts, tab.lens, tab.miss_sorted, tab.group_start[b],
-                        cnt_arg, T.byte_to_id, T.byte_pair_id, T.pair_rows_cat,
-                        T.table_mask, lanes=lanes, cap=cap, rounds=rounds)
-                    return [ids, act], [ran]
+            _cols, _live, c_len, mat_t = pipeline.bucket_matrix(
+                buf_dev, tab.starts, tab.lens, tab.miss_sorted, tab.group_start[b], cnt,
+                lanes=lanes, cap=cap)
 
-                unit = dev_mod.ColdUnit(("loop", b, wide), [])
-                ones = [1] * len(merge_exact.phase_chain(lanes)) if wide else 1
-                engine._capture(
-                    lambda: run(tuple(ones) if wide else ones, tab.bucket_counts[b]),
-                    [unit],
-                    lambda u: run(merge.DEVICE, tab.bucket_counts[b]),
-                    shared_pool=False)
-                engine._replay(unit)
-                got, counters = unit.out
-                want, plain_rounds = run(None, cnt)
-                rounds = [int(c) for c in counters]
-                err = 0
-                for gi, ga, wi, wa in zip(got[0::2], got[1::2], want[0::2], want[1::2]):
-                    err = max(err, int((ga != wa).sum()), int(
-                        (torch.where(wa, gi, 0) - torch.where(wa, wi, 0)).abs().max()))
-                if rounds != plain_rounds or err != 0:
-                    raise AssertionError(
-                        f"device loop {flavor} lanes {lanes} wide {wide}: rounds {rounds} / "
-                        f"{plain_rounds}, err {err}")
-                max_err = max(max_err, err)
-                W = lanes
-                row = {
-                    "flavor": flavor, "lanes": lanes, "cap": cap, "count": cnt,
-                    "wide": wide, "rounds": rounds,
-                    "ms": event_ms(lambda: engine._replay(unit), 5),
-                    "plain_ms": event_ms(lambda: run(None, cnt), 2),
-                    # the bucket's bytes in, ids and active lanes out, once
-                    "bound_ms": (W * cap * (1 + 4 + 1) + cap * 4) / HBM_BYTES_PER_S * 1e3,
-                }
-                shapes.append(row)
-                log(f"device loop {flavor} bucket {b} ({lanes} lanes, cap {cap}, {cnt} live, "
-                    f"{'wide' if wide else 'narrow'}): rounds {rounds} equal the plain loop's; "
-                    f"graph replay {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
-                    f"{row['bound_ms']:.5f} ms [{card}]")
+            def bucket(fn, rounds):
+                cols, live, c_len, mat_t = pipeline.bucket_matrix(
+                    buf_dev, tab.starts, tab.lens, tab.miss_sorted, tab.group_start[b],
+                    tab.bucket_counts[b], lanes=lanes, cap=cap)
+                return fn(mat_t, c_len, *tables, rounds=rounds)
+
+            units = {}
+            for label, fn in (("bucket", merge.merge_rows_t3),
+                              ("while", merge.merge_rows_t3_plain)):
+                unit = units[label] = dev_mod.ColdUnit(("loop", b, label), [])
+                engine._capture(lambda fn=fn: bucket(fn, 1), [unit],
+                                lambda u, fn=fn: bucket(fn, merge.DEVICE), shared_pool=False)
+            kernel = merge.merge_rows_t3(mat_t, c_len, *tables, rounds=merge.DEVICE)
+            want = merge.merge_rows_t3_plain(mat_t, c_len, *tables)
+            outs = {"kernel": kernel}
+            for label, unit in units.items():
+                unit.graph.replay()  # no scan inside: nothing to account
+                outs[label] = unit.out
+            torch.cuda.synchronize()
+            err = 0
+            for label, (ids, act, counter) in outs.items():
+                err = max(err, int((ids != want[0]).sum()), int((act != want[1]).sum()),
+                          abs(int(counter) - want[2]))
+            if err != 0:
+                raise AssertionError(
+                    f"merge kernel {flavor} lanes {lanes}: outputs differ from the plain loop "
+                    f"({want[2]} rounds): {[(k, int(v[2])) for k, v in outs.items()]}")
+            max_err = max(max_err, err)
+            row = {
+                "flavor": flavor, "lanes": lanes, "cap": cap, "count": cnt,
+                "rounds": want[2],
+                "ms": event_ms(lambda: merge.merge_rows_t3(mat_t, c_len, *tables,
+                                                          rounds=merge.DEVICE), 20),
+                "bucket_ms": event_ms(units["bucket"].graph.replay, 20),
+                "while_ms": event_ms(units["while"].graph.replay, 5),
+                "plain_ms": event_ms(lambda: merge.merge_rows_t3_plain(
+                    mat_t, c_len, *tables), 2),
+                # the bucket's bytes in, ids and active lanes out, once
+                "bound_ms": (lanes * cap * (1 + 4 + 1) + cap * 4) / HBM_BYTES_PER_S * 1e3,
+            }
+            shapes.append(row)
+            log(f"merge kernel {flavor} bucket {b} ({lanes} lanes, cap {cap}, {cnt} live): "
+                f"ids, active lanes and {want[2]} rounds equal the plain loop's, the WHILE "
+                f"replay's and the bucket replay's; kernel {row['ms']:.4f} ms, bucket replay "
+                f"{row['bucket_ms']:.4f} ms, WHILE replay {row['while_ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms [{card}]")
+    if [(r["flavor"], r["lanes"]) for r in shapes] != [
+            ("english", 8), ("english", 16), ("cjk", 384), ("cjk", 4096)]:
+        raise AssertionError(f"phase 5b met other buckets: {[r['lanes'] for r in shapes]}")
     return shapes, max_err
 
 
@@ -2019,7 +2034,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from jtokkit_tpu_torch import native
-    from jtokkit_tpu_torch.ops import gather, loop, scan
+    from jtokkit_tpu_torch.ops import gather, loop, merge, scan
 
     def timed_build(fn):
         t = time.time()
@@ -2027,7 +2042,7 @@ def main() -> int:
         return time.time() - t
 
     t = time.time()
-    libraries = [scan.LIBRARY, gather.LIBRARY, loop.LIBRARY]
+    libraries = [scan.LIBRARY, gather.LIBRARY, loop.LIBRARY, merge.LIBRARY]
     builds = [(lib.name, lib.build) for lib in libraries] + [("native", native.build)]
     with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each, together
         futures = [(name, pool.submit(timed_build, fn)) for name, fn in builds]
@@ -2121,27 +2136,46 @@ def main() -> int:
         "shapes": gather_row["shapes"],
         "limit_table_ms": gather_row["limit_table_ms"],
     }, {
+        "name": "merge_t3",
+        "route": "cuda",
+        "source": "jtokkit_tpu_torch/csrc/merge.cu",
+        # not a Pallas kernel: it replaces the merge rounds that the JAX
+        # package runs in a lax.while_loop around merge_rows_t3
+        "replaces": REPLACES_LOOP,
+        "does": "every piece of a Stage B bucket merged to its end in one launch",
+        # bucket merges of the main path's cached engine: its launches and the
+        # launches its graph replays hold (engine.merge_kernel_runs)
+        "launches": main_row["merge_kernel_runs"],
+        "max_abs_err": loop_err,
+        "ms": loop_rows[0]["ms"],
+        "plain_ms": loop_rows[0]["plain_ms"],
+        "bound_ms": loop_rows[0]["bound_ms"],
+        "bound_by": "latency: the longest piece's chain of dependent lookups",
+        "library_ms": None,
+        "shape": {k: loop_rows[0][k] for k in ("flavor", "lanes", "cap", "count", "rounds")},
+        "shapes": loop_rows,
+    }, {
         "name": "device_while",
         "route": "cuda",
         "source": "jtokkit_tpu_torch/csrc/loop.cu",
         # not a Pallas kernel: the counterpart of the merge loops'
-        # lax.while_loop (also merge.py:445, merge_exact.py:197)
+        # lax.while_loop (merge.py:445 in the fallback, merge_exact.py:197)
         "replaces": REPLACES_LOOP,
         "does": "a CUDA graph WHILE node per merge loop: its step kernel sets the "
                 "node's condition from the loop's test on the card and counts the round",
         # runs of the step kernel in the main path's calls, from the round
         # counters read back (one per loop run and one per round; the kernel
-        # runs inside graph replays, never launched by the wrapper itself)
+        # runs inside graph replays, never launched by the wrapper itself):
+        # none since the narrow buckets merge in merge_t3
         "launches": main_row["loop_steps"],
         "max_abs_err": loop_err,
-        "ms": loop_rows[0]["ms"],
+        # the narrow bucket's merge as one WHILE node: phase 5b's yardstick
+        "ms": loop_rows[0]["while_ms"],
         "plain_ms": loop_rows[0]["plain_ms"],
         "bound_ms": loop_rows[0]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "shape": {k: loop_rows[0][k] for k in ("flavor", "lanes", "cap", "count", "wide",
-                                               "rounds")},
-        "shapes": loop_rows,
+        "shape": {k: loop_rows[0][k] for k in ("flavor", "lanes", "cap", "count", "rounds")},
     }]
     summary = {name: {**main_row["corpora"][name], "decode_mb_s": decode_rates[name]}
                for name in results}

@@ -28,7 +28,8 @@ methods). Per batch (documents -> token ids):
    longest piece. ``native_long=False`` keeps them on the device.
 4. Stage B per nonempty bucket: exact byte-pair merge
    (``ops/pipeline.merge_bucket_v3``), capacity the smallest power of two
-   covering the bucket's count.
+   covering the bucket's count; on CUDA ONE launch of the merge kernel
+   (``csrc/merge.cu``) a bucket, every piece merged to its end.
 5. Stage C: counts, offsets, token scatters, per-document counts.
 6. Host read 2: ONE fetch of every chunk's token count and document counts,
    then every chunk's live token prefix, packed to 2 bytes a token (plus a
@@ -44,13 +45,15 @@ chunk is the replay of a CUDA graph keyed by (variant, capacity divisors,
 flat size, document slots), its Stages B and C one graph keyed by that and
 the buckets' capacities, whose live counts it takes from the piece table on
 the card, and the fallback's bucket merge one graph per (rows, width). A
-shape met for the first time is captured then. Every merge loop inside
-these graphs is a CUDA graph WHILE node (``ops/loop.py``) that runs its
-rounds on the card, so the only host reads are the two above (a count
-needs only the document counts) and the fetch wait; the loops' round
-counters come back with the last read. ``cold_cache=False`` (the default
-on a CPU device) issues every op eagerly and reads each merge loop's exit
-test back after every round.
+shape met for the first time is captured then. A bucket's merge inside
+these graphs is one merge kernel, which writes the rounds the merge loop
+would have run into a counter; the wide hybrid's and the fallback's merge
+loops are CUDA graph WHILE nodes (``ops/loop.py``) that run their rounds
+on the card. So the only host reads are the two above (a count needs only
+the document counts) and the fetch wait; the round counters come back with
+the last read. ``cold_cache=False`` (the default on a CPU device) issues
+every op eagerly and reads each bucket's round counter back (on the CPU:
+each merge loop's exit test after every round).
 
 Steady state (``plan = preload_corpus(texts)``, then the batch methods with
 ``plan=plan``): the first pass over a plan is the cold pass above and leaves
@@ -73,10 +76,13 @@ On a CPU device both bodies run eagerly. All cached values derive from the
 plan's immutable buffers, so reuse is exact; tokens are computed from the
 bytes on every pass.
 ``host_reads`` counts every fetch of device data. ``merge_rounds`` counts
-the rounds the byte-pair merge loops ran (the device loops' come back with
-the call's last read), and ``miss_pieces`` the pieces sent to them: the
-bucket counts, from the metas, of every chunk routed to Stages B-C of an
-un-planned or first pass. Neither adds a read.
+the rounds the byte-pair merge loops ran, or would have run where the merge
+kernel ran instead (the device counters come back with the call's last
+read), ``miss_pieces`` the pieces sent to them: the bucket counts, from
+the metas, of every chunk routed to Stages B-C of an un-planned or first
+pass, and ``merge_kernel_runs`` the bucket merges run by the merge kernel
+(a launch adds one; a graph replay adds the launches its capture holds).
+None of them adds a read.
 
 Batch decode (token ids -> bytes) concatenates the lists, runs
 ``ops/decode.decode_tokens`` once and fetches the bytes once; lists with a
@@ -98,8 +104,8 @@ import numpy as np
 import torch
 
 from ..ops import (
-    boundaries, classify, decode as decode_ops, loop, merge, merge_exact,
-    pipeline, scan, stage4,
+    _build, boundaries, classify, decode as decode_ops, loop, merge,
+    merge_exact, pipeline, scan, stage4,
 )
 from ..utils.spans import span
 from ..vocab import tables as vtables
@@ -210,6 +216,7 @@ class _Captured:
         self.out = None
         self.n_scans = 0    # scan calls recorded in the graph
         self.n_rounds = 0   # merge rounds recorded in the graph (fixed counts)
+        self.n_merge_kernels = 0  # merge kernel launches recorded in the graph
         # the graphs of its device loops' bodies (ops/loop.py), whose memory
         # pools hold the bodies' temporaries: kept as long as the graph
         self.bodies = []
@@ -297,6 +304,10 @@ class DeviceEngine:
         self.packed = packed
         self.oracle = oracle
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the kernels this engine launches, built together (one nvcc
+            # each) where this checkout has no build of them yet
+            _build.build_all([scan.LIBRARY, loop.LIBRARY, merge.LIBRARY])
         self.tables = DeviceTables.from_packed(packed, self.device)
         self.chunk_bytes = max(2, int(chunk_bytes) & ~1)
         self._flat_sizes = tuple(
@@ -316,6 +327,9 @@ class DeviceEngine:
         # bucket counts of every chunk routed to Stages B-C, from the metas)
         self.merge_rounds = 0
         self.miss_pieces = 0
+        # bucket merges run by the merge kernel (csrc/merge.cu): one a launch,
+        # and a graph's recorded launches at each replay
+        self.merge_kernel_runs = 0
         # chunks of un-planned calls whose Stage A was issued before the
         # call's last chunk was planned (n - 1 for a call of n chunks)
         self.streamed_chunks = 0
@@ -405,19 +419,20 @@ class DeviceEngine:
         their counters read back as ``flat``: per bucket an int, or a tuple
         per phase where the bucket is wide. The rounds are added to
         ``merge.MERGE_ROUNDS`` and ``merge_rounds``, and the step kernel's
-        runs to ``loop.STEP_RUNS``."""
+        runs of the wide buckets' loops to ``loop.STEP_RUNS`` (a narrow
+        bucket's counter is the merge kernel's: no step kernel ran)."""
         pos = 0
         for entry, counters in pending:
             ran = [int(x) for x in flat[pos : pos + counters.numel()]]
             pos += counters.numel()
             merge.MERGE_ROUNDS += sum(ran)
             self.merge_rounds += sum(ran)
-            loop.count_steps(ran)
             rounds = []
             for _b, lanes, _cap, _n in entry["caps"]:
                 if lanes >= self.wide_min_lanes:
                     k = len(merge_exact.phase_chain(lanes))
                     rounds.append(tuple(ran[:k]))
+                    loop.count_steps(ran[:k])
                 else:
                     k = 1
                     rounds.append(ran[0])
@@ -569,6 +584,7 @@ class DeviceEngine:
         """
         T = self.tables
         tests, rounds_before = merge.EXIT_TESTS, merge.MERGE_ROUNDS
+        launches = merge.KERNEL_LAUNCHES
         if lanes >= self.wide_min_lanes:
             cols, outs, ran = merge_exact.merge_bucket_exact(
                 buf_dev, t.starts, t.lens, t.miss_sorted, t.group_start[b],
@@ -584,6 +600,7 @@ class DeviceEngine:
             outs = [(ids, active)]
         self.host_reads += merge.EXIT_TESTS - tests
         self.merge_rounds += merge.MERGE_ROUNDS - rounds_before
+        self.merge_kernel_runs += merge.KERNEL_LAUNCHES - launches
         return cols, outs, ran
 
     def _stages_b_c(self, buf_dev, de_dev, t, caps, rounds, want_tokens: bool,
@@ -719,8 +736,8 @@ class DeviceEngine:
         replays from the engine's graph cache (:meth:`_cold_stage_a`,
         :meth:`_cold_stages_b_c`); the rounds those loops ran come back in
         ``results.pending`` for the caller's last read. Without it every op
-        is issued eagerly and each merge loop reads its exit test back after
-        every round.
+        is issued eagerly and each bucket's merge reads its rounds back (on
+        the CPU, and in a wide bucket, its exit test after every round).
 
         Returns a :class:`ChunkResults`, one result per chunk: ("ok", parts,
         tokens, n_tokens, doc_counts) with device tensors, or ("fallback" or
@@ -925,11 +942,12 @@ class DeviceEngine:
         divs, N, D, (b, lanes, cap) per bucket, want_tokens): the live
         counts and the bucket starts come from the piece table on the
         device, so one unit serves every chunk whose counts quantize to the
-        same capacities. Its merges are device loops (``merge.DEVICE``).
+        same capacities. Its merges run in the device form (``merge.DEVICE``:
+        one merge kernel a narrow bucket, WHILE loops in a wide one).
 
         Returns (tokens or None, n_tokens, doc_counts, int32 round counters
-        of its loops in bucket order, phase by phase where a bucket is
-        wide), all on the device.
+        in bucket order, phase by phase where a bucket is wide), all on the
+        device.
         """
         sig = tuple((b, lanes, cap) for b, lanes, cap, _n in caps)
 
@@ -1565,8 +1583,9 @@ class DeviceEngine:
         ``scan.SCRATCH`` as long as the process) and load every kernel the
         recording launches. What a recording adds to the engine's counters
         (Stage A runs, merge rounds) was recorded, not run: the counters are
-        restored, and the unit keeps its scans and rounds, and the graphs of
-        its device loops' bodies (``unit.bodies``).
+        restored, and the unit keeps its scans, rounds and merge kernel
+        launches, and the graphs of its device loops' bodies
+        (``unit.bodies``).
 
         Returns (seconds spent, bytes reserved while capturing).
         """
@@ -1594,6 +1613,7 @@ class DeviceEngine:
         loop.take_bodies()
         for u in units:
             scans, rounds = scan.CAPTURED_CALLS, merge.MERGE_ROUNDS
+            merges = merge.CAPTURED_CALLS
             runs, mine = self.stage_a_runs, self.merge_rounds
             graph = torch.cuda.CUDAGraph()
             if shared_pool:
@@ -1610,6 +1630,7 @@ class DeviceEngine:
             u.bodies = loop.take_bodies()
             u.n_scans = scan.CAPTURED_CALLS - scans
             u.n_rounds = merge.MERGE_ROUNDS - rounds
+            u.n_merge_kernels = merge.CAPTURED_CALLS - merges
             # recorded, not run
             self.stage_a_runs, self.merge_rounds = runs, mine
             merge.MERGE_ROUNDS = rounds
@@ -1617,10 +1638,12 @@ class DeviceEngine:
 
     def _replay(self, unit: _Captured):
         """Replay a unit's graph on the current stream; returns its outputs.
-        The scans it recorded are accounted first (``scan.count_replay``)."""
+        The scans it recorded are accounted first (``scan.count_replay``),
+        its merge kernel launches after (``merge_kernel_runs``)."""
         scan.count_replay(self.device, self._capture_stream.cuda_stream, unit.n_scans)
         unit.graph.replay()
         self.graph_replays += 1
+        self.merge_kernel_runs += unit.n_merge_kernels
         return unit.out
 
     def _run_block(self, blk: CountBlock):

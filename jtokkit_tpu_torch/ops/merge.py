@@ -29,13 +29,34 @@ CPU, is the cold loop. :data:`MERGE_ROUNDS` counts the rounds of the cold
 and fixed forms where they run; the device form's rounds are added by
 whoever reads its counter back. :data:`EXIT_TESTS` counts the flags read
 back.
+
+That loop is the plain version of :func:`merge_rows_t3`
+(:func:`merge_rows_t3_plain`), and the wrapper takes it only for CPU
+tensors. A CUDA tensor goes to ONE launch of the hand-written kernel in
+``csrc/merge.cu`` (:func:`merge_rows_t3_cuda`) and nowhere else: each piece
+runs its own sequential merge to its end, with no global round, since the
+merge of one piece depends on no other. Every loop form maps onto the
+kernel's limit on merges per piece: after ``k`` rounds each piece has made
+``min(k, its merges)`` merges, so ``rounds=k`` is the limit ``k``; the cold
+and device forms have no limit, and the kernel writes the rounds the loop
+would have run (the most merges of any piece) into a 0-d int32 counter,
+which the device form returns and the cold form reads back once (one exit
+test). :data:`KERNEL_LAUNCHES` counts the wrapper's launches,
+:data:`CAPTURED_CALLS` the launches recorded into a CUDA graph instead. The
+kernel replaces no TPU kernel: it is the counterpart of the JAX package's
+``lax.while_loop`` around ``merge_rows_t3``, bound by the longest piece's
+chain of dependent lookups, not by bytes. The row-major :func:`merge_rows`
+of the long-piece fallback keeps its loops.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import loop
+from ._build import KernelLibrary, cuda_device_index
 from .classify import take_clip
 from .colscan import excl_rev
 from .stage4 import _mix
@@ -53,6 +74,33 @@ MERGE_ROUNDS = 0
 # exit tests of the cold loops: each is one 0-d bool read back to the host,
 # counted where it is read
 EXIT_TESTS = 0
+# launches of the merge kernel by merge_rows_t3_cuda, and launches it
+# recorded into a CUDA graph under capture instead (each replay runs them)
+KERNEL_LAUNCHES = 0
+CAPTURED_CALLS = 0
+
+# the kernel's widest bucket: a position takes 12 bits of its packed key
+MAX_LANES = 1 << 12
+# ranks the packed key holds: (rank << 12) | position below 0xFFFFFFFF
+KEY_RANK_LIMIT = (1 << 20) - 1
+_NO_LIMIT = 0x7FFFFFFF
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp = ctypes.c_void_p
+    lib.jt_merge_t3.argtypes = [
+        vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, vp, vp, vp, ctypes.c_int, vp,
+    ]
+    lib.jt_merge_t3.restype = ctypes.c_int
+    for fn in (lib.jt_merge_max_lanes, lib.jt_merge_key_rank_limit):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    if (lib.jt_merge_max_lanes(), lib.jt_merge_key_rank_limit()) != (MAX_LANES, KEY_RANK_LIMIT):
+        raise RuntimeError("the merge library's key layout differs from ops/merge.py")
+
+
+LIBRARY = KernelLibrary("merge", _declare)
 
 
 def _read_flag(flag) -> bool:
@@ -177,11 +225,13 @@ def run_rounds(ids, rank, active, pair_rows_cat, table_mask, rounds=None,
     return ids, rank, active, ran
 
 
-def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
-                  table_mask, *, rounds=None):
+def merge_rows_t3_plain(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+                        table_mask, *, rounds=None):
     """Exact merge of a transposed piece matrix (column r holds piece r's
-    bytes in rows 0..lens[r]-1). Semantics identical to the reference merge
-    loop (``M/GptBytePairEncoding.java:200-275``).
+    bytes in rows 0..lens[r]-1, ``0 <= lens[r] <= W``) as rounds of
+    :func:`t3_round`, on any device: the plain version of
+    :func:`merge_rows_t3`. Semantics identical to the reference merge loop
+    (``M/GptBytePairEncoding.java:200-275``).
 
     ``rounds``: see :func:`run_rounds`. Returns (ids_t int32[W, R],
     active_t bool[W, R], rounds run).
@@ -203,6 +253,107 @@ def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
         ids, rank, active, pair_rows_cat, table_mask, rounds
     )
     return ids, active, ran
+
+
+def _max_rank(table: torch.Tensor, column=None) -> int:
+    """The largest rank a table holds (``column`` of its rows), read once per
+    table and kept on the tensor until it is written in place."""
+    cached = getattr(table, "_jtokkit_max_rank", None)
+    if cached is not None and cached[0] == table._version:
+        return cached[1]
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "merge kernel: the table's ranks are checked by one read, which a"
+            " capture cannot make: run the merge once before capturing it"
+        )
+    vals = table if column is None else table[:, column]
+    value = int(vals.max()) if vals.numel() else -1
+    table._jtokkit_max_rank = (table._version, value)
+    return value
+
+
+def merge_rows_t3_cuda(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+                       table_mask, *, rounds=None):
+    """:func:`merge_rows_t3` on CUDA tensors: ONE launch of the kernel in
+    ``csrc/merge.cu`` (or its recording, under a capture), every piece
+    merged to its end or to ``rounds=k`` merges. Returns what the plain
+    version returns for the same ``rounds``; the cold form reads the
+    kernel's round counter back once (one exit test)."""
+    global KERNEL_LAUNCHES, CAPTURED_CALLS, MERGE_ROUNDS, EXIT_TESTS
+    W, R = mat_t.shape
+    dev = mat_t.device
+    if dev.type != "cuda":
+        raise ValueError("merge_rows_t3_cuda takes CUDA tensors")
+    tables = (lens, byte_to_id, byte_pair_id, pair_rows_cat)
+    if any(x.device != dev for x in tables):
+        raise ValueError("the merge's tensors must lie on one device")
+    if mat_t.dtype != torch.uint8 or any(x.dtype != torch.int32 for x in tables):
+        raise TypeError("the merge takes a uint8 matrix and int32 lengths and tables")
+    if not all(x.is_contiguous() for x in (mat_t,) + tables):
+        raise ValueError("the merge's tensors must be contiguous")
+    T = table_mask + 1
+    if (lens.shape != (R,) or byte_to_id.shape != (256,)
+            or byte_pair_id.shape != (1 << 16,) or T & table_mask
+            or pair_rows_cat.shape != (2 * T, 4) or pair_rows_cat.data_ptr() % 16):
+        raise ValueError("the merge's shapes do not fit the kernel")
+    if not 1 <= W <= MAX_LANES:
+        raise ValueError(f"a bucket of {W} lanes is wider than the kernel's {MAX_LANES}")
+    top = max(_max_rank(byte_pair_id), _max_rank(pair_rows_cat, 2))
+    if top >= KEY_RANK_LIMIT:
+        raise ValueError(
+            f"rank {top} does not fit the merge kernel's key (ranks below {KEY_RANK_LIMIT})")
+    device = rounds == DEVICE
+    limit = _NO_LIMIT if rounds is None or device else int(rounds)
+    if limit < 0:
+        raise ValueError("rounds must not be negative")
+    ids = torch.empty((W, R), dtype=torch.int32, device=dev)
+    active = torch.empty((W, R), dtype=torch.bool, device=dev)
+    counter = (torch.zeros((), dtype=torch.int32, device=dev)
+               if rounds is None or device else None)
+    if R:
+        rc = LIBRARY.load().jt_merge_t3(
+            mat_t.data_ptr(), lens.data_ptr(), byte_to_id.data_ptr(),
+            byte_pair_id.data_ptr(), pair_rows_cat.data_ptr(), table_mask, W, R,
+            limit, ids.data_ptr(), active.data_ptr(),
+            None if counter is None else counter.data_ptr(),
+            cuda_device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"merge kernel launch failed: CUDA error {rc}")
+        if torch.cuda.is_current_stream_capturing():
+            CAPTURED_CALLS += 1
+        else:
+            KERNEL_LAUNCHES += 1
+    if device:
+        return ids, active, counter
+    if rounds is None:
+        EXIT_TESTS += 1
+        ran = int(counter.item())
+    else:
+        ran = limit
+    MERGE_ROUNDS += ran
+    return ids, active, ran
+
+
+def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+                  table_mask, *, rounds=None):
+    """Exact merge of a transposed piece matrix (column r holds piece r's
+    bytes in rows 0..lens[r]-1, ``0 <= lens[r] <= W``). Semantics identical
+    to the reference merge loop (``M/GptBytePairEncoding.java:200-275``).
+
+    CUDA tensors go to the kernel (:func:`merge_rows_t3_cuda`), CPU tensors
+    to the plain version (:func:`merge_rows_t3_plain`). ``rounds``: see
+    :func:`run_rounds`. Returns (ids_t int32[W, R], active_t bool[W, R],
+    rounds run: an int, or for ``DEVICE`` a 0-d int32 tensor).
+    """
+    dev = mat_t.device
+    if dev.type == "cuda":
+        return merge_rows_t3_cuda(mat_t, lens, byte_to_id, byte_pair_id,
+                                  pair_rows_cat, table_mask, rounds=rounds)
+    if dev.type != "cpu":
+        raise ValueError(f"no merge for device {dev}")
+    return merge_rows_t3_plain(mat_t, lens, byte_to_id, byte_pair_id,
+                               pair_rows_cat, table_mask, rounds=rounds)
 
 
 def row_round(ids, rank, active, pair_rows_cat, table_mask):

@@ -302,7 +302,9 @@ def test_plan_first_pass_fills_rounds_from_the_counters(wide):
 def test_read_settles_pending_rounds_once():
     """``_read(t, pending)`` returns ``t``'s values, fills each pending
     entry's rounds from the counters fetched in the same read and empties
-    the list; one host read in all."""
+    the list; one host read in all. Only a wide bucket's loops ran the step
+    kernel (one run a loop and one a round): a narrow bucket's counter is
+    the merge kernel's."""
     _orc, eng = _cached_engine()
     entry = {"kind": "ok", "caps": [(0, 8, 512, 3), (1, 16, 512, 1)], "rounds": None}
     pending = [(entry, torch.tensor([4, 7], dtype=torch.int32))]
@@ -312,7 +314,13 @@ def test_read_settles_pending_rounds_once():
     assert got.dtype == np.int64 and pending == []
     assert entry["rounds"] == [4, 7]
     assert eng.host_reads - reads == 1 and merge.MERGE_ROUNDS - rounds == 11
-    assert loop.STEP_RUNS - steps == 2 + 11
+    assert loop.STEP_RUNS == steps
+    _orc, wide = _cached_engine(wide_min_lanes=16)
+    entry = {"kind": "ok", "caps": [(0, 8, 512, 3), (1, 16, 512, 1)], "rounds": None}
+    pending = [(entry, torch.tensor([4, 7], dtype=torch.int32))]
+    wide._read(torch.zeros(1, dtype=torch.int64), pending)
+    assert entry["rounds"] == [4, (7,)]
+    assert merge.MERGE_ROUNDS - rounds == 22 and loop.STEP_RUNS - steps == 1 + 7
 
 
 def test_cache_drops_the_least_recently_used_unit():
