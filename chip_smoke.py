@@ -11,8 +11,8 @@
 Phases (each raises on failure, and then no result line is printed):
 
 1. Card: requires CUDA; prints nvidia-smi's name and power limit.
-2. Build: compiles the kernels (jtokkit_tpu_torch/csrc/scan.cu, gather.cu,
-   loop.cu, the device loop's step kernel, and merge.cu) and the native host engine
+2. Build: compiles the kernels (jtokkit_tpu_torch/csrc/scan.cu, gather.cu
+   and merge.cu) and the native host engine
    (csrc/jtokkit_native.cc) from the checkout, one nvcc or g++ each, started
    together; prints the build times and each kernel's registers and shared
    memory.
@@ -51,10 +51,9 @@ Phases (each raises on failure, and then no result line is printed):
 5b. The merge kernel (jtokkit_tpu_torch/csrc/merge.cu) at the main path's
    bucket shapes, english 8 x 2048 and 16 x 512, cjk 384 x 1024 and
    4096 x 512 (the first chunk of one english and one cjk corpus): the
-   kernel alone, the bucket as the engine replays it, the bucket's plain
-   loop as one CUDA graph WHILE node (the yardstick, on no path of the
-   engine) and the plain loop reading its test back; ids, active lanes and
-   rounds equal; device ms of each beside the bound.
+   kernel alone, the bucket as the engine replays it and the plain loop
+   reading its test back; ids, active lanes and rounds equal; device ms of
+   each beside the bound.
 6. Decode: the tokens of the three corpora go back through
    decode_bytes_batch; the bytes equal the documents' UTF-8 and the numpy
    host decode, with one scan launch per call; special and unknown ids behave
@@ -62,11 +61,11 @@ Phases (each raises on failure, and then no result line is printed):
 7. Long pieces (native_long=False): english documents with a 5000-byte and
    a 4500-byte piece and a 3000-byte CJK run mixed in; tokens equal the
    oracle, the chunks take the device fallback (3 scan launches per fallback
-   chunk beside Stage A's 5 per eager run), and exactly the pieces over 4096
-   bytes merge on the host. Encode (captures), count and a second encode
-   (replays) read no exit test back; the second encode's rounds from the
-   device counters equal an eager engine's on the same batch, whose pass is
-   timed beside it.
+   chunk beside Stage A's 5 per eager run, its bucket merges on the merge
+   kernel), and exactly the pieces over 4096 bytes merge on the host.
+   Encode (captures), count and a second encode (replays) read no exit test
+   back; the second encode's rounds from the device counters equal an eager
+   engine's on the same batch, whose pass is timed beside it.
 8. Native routing, through the public registry as users get it: chunks
    routed to the native engine out of all chunks per corpus, encode and
    count MB/s against phase 5's native_long=False engine, a warmed cjk plan;
@@ -110,16 +109,17 @@ Phases (each raises on failure, and then no result line is printed):
    dispatch chunk by chunk, each under torch.cuda.set_sync_debug_mode
    ("error"), the fetch formats (12-bit plane, low halves, int32) timed with
    the pack inside graphs (jtokkit_tpu_torch.scripts.fetch_formats, english),
-   the scan's clear falling due under a replay, and an engine with
-   wide_min_lanes=64 over the wide-routing documents (tokens equal the
+   the scan's clear falling due under a replay, and a second
+   native_long=False engine over the documents that the JAX package routes
+   to its wide-bucket merge (buckets of 64 lanes and more; tokens equal the
    oracle's, cold, captured and replayed) and over cjk as graph replays:
    the capture pass, three replayed encodes and, after the count's capture
    pass, three replayed counts, each 1 host read and one replay per graph
    with no scan launch by the wrapper and no merge round; the replays equal
    the eager dispatch chunk by chunk, both under set_sync_debug_mode
-   ("error"); capture seconds and pool bytes beside the narrow plan's. Its
+   ("error"); capture seconds and pool bytes beside the first plan's. Its
    device traces (one replayed count and one replayed encode per plan, the
-   wide cjk plan too: scan kernel launches equal the graphs' recordings)
+   second cjk plan too: scan kernel launches equal the graphs' recordings)
    come after every timed pass of the phases above.
 14. Bench count plans: the bench's engine over 16 MB of english, four plans
    in turns of the single engine's count and the world-1 sharded one: five
@@ -490,13 +490,13 @@ def sample(docs, mb: float):
 def engine_counters(engine):
     """What a call of the engine's un-planned path did, as counters to take
     a difference of."""
-    from jtokkit_tpu_torch.ops import loop, merge, scan
+    from jtokkit_tpu_torch.ops import merge, scan
 
     return {"host_reads": engine.host_reads, "exit_tests": merge.EXIT_TESTS,
             "merge_rounds": merge.MERGE_ROUNDS, "stage_a_runs": engine.stage_a_runs,
             "scan_launches": scan.KERNEL_LAUNCHES, "graph_replays": engine.graph_replays,
             "captures": engine.cold_captures, "retries": engine.capacity_retries,
-            "loop_steps": loop.STEP_RUNS, "merge_kernel_runs": engine.merge_kernel_runs}
+            "merge_kernel_runs": engine.merge_kernel_runs}
 
 
 def counted(engine, fn):
@@ -533,7 +533,7 @@ def phase_main_path(card: str):
 
     from jtokkit_tpu_torch import Encodings, EncodingType
     from jtokkit_tpu_torch.engine.device import DeviceEngine
-    from jtokkit_tpu_torch.ops import loop, merge, scan
+    from jtokkit_tpu_torch.ops import merge, scan
     from jtokkit_tpu_torch.utils import corpus
 
     t0 = time.time()
@@ -542,7 +542,7 @@ def phase_main_path(card: str):
     # the device merge for every chunk: no routing to the native engine. The
     # engine runs the un-planned path from its graph cache (the default on a
     # card); "eager" is the same path with every op issued from the host and
-    # each merge loop reading its exit test back, the reference it is held to
+    # each bucket's merge reading its rounds back, the reference it is held to
     engine = DeviceEngine.from_oracle(enc.oracle, native_long=False)
     eager = DeviceEngine.from_oracle(enc.oracle, native_long=False, cold_cache=False)
     if engine.device.type != "cuda" or engine.chunk_bytes != 1 << 20 \
@@ -563,7 +563,6 @@ def phase_main_path(card: str):
     scan.KERNEL_LAUNCHES = 0
     scan.PLAIN_CALLS = 0
     merge.MERGE_ROUNDS = 0
-    loop.STEP_RUNS = 0
     launches = runs = 0  # the cached engine's; the eager reference's are not
     merge_runs0 = engine.merge_kernel_runs
     exit_tests0, fallback0 = merge.EXIT_TESTS, engine.fallback_chunks
@@ -647,8 +646,7 @@ def phase_main_path(card: str):
                 f"{c['stage_a_runs']} eager Stage A runs, {c['scan_launches']} scan "
                 f"launches by the wrapper, {c['graph_replays']} replays, "
                 f"{c['merge_rounds']} merge rounds from the device counters "
-                f"({c['merge_kernel_runs']} merge kernel runs, {c['loop_steps']} step-kernel "
-                f"runs) [{card}]")
+                f"({c['merge_kernel_runs']} merge kernel runs) [{card}]")
         log(f"  eager, same bytes: encode {row['eager_encode_mb_s']:.2f} MB/s "
             f"({e_enc['host_reads']} host reads, {e_enc['exit_tests']} exit tests, "
             f"{e_enc['merge_rounds']} merge rounds), count {row['eager_count_mb_s']:.2f} MB/s "
@@ -656,8 +654,7 @@ def phase_main_path(card: str):
             f"{len(sample(fresh, 1.0))} + {len(sample(docs, 1.0))} docs equal the oracle "
             f"[{card}]")
         log(f"  graph cache after {name}: {stats['units']} graphs ({stats['stage_a']['units']} "
-            f"Stage A, {stats['stages_b_c']['units']} Stages B-C, {stats['flat']['units']} "
-            f"fallback merges) holding {stats['loops']} device loops, pool "
+            f"Stage A, {stats['stages_b_c']['units']} Stages B-C), pool "
             f"{stats['pool_bytes']} bytes; {stats['captures']} captures in "
             f"{stats['capture_seconds']:.2f} s [{card}]")
         results[name] = (docs, tokens, counts, mb, enc_s, cnt_s)
@@ -667,7 +664,7 @@ def phase_main_path(card: str):
     log(f"encode and count (the cached engine): {runs} eager Stage A runs (warm-ups before "
         f"capture), {launches} scan kernel launches, {plain} plain scan calls, "
         f"{merge.EXIT_TESTS - exit_tests0} exit tests in all (the eager engine's included), "
-        f"{fallback_chunks} fallback chunks, {loop.STEP_RUNS} loop step-kernel runs")
+        f"{fallback_chunks} fallback chunks")
     if launches != 5 * runs or runs == 0:
         raise AssertionError(f"{launches} launches for {runs} cl100k Stage A runs")
     if plain != 0:
@@ -693,7 +690,7 @@ def phase_main_path(card: str):
             f"cache ({dev_engine.graph_replays - replays} replays, 0 exit tests)")
     breakdown = summary.pop("breakdown")
     # every cached call of the phase, the conformance rows' too
-    return enc, engine, launches, results, {"corpora": summary, "loop_steps": loop.STEP_RUNS,
+    return enc, engine, launches, results, {"corpora": summary,
                                             "merge_kernel_runs":
                                                 engine.merge_kernel_runs - merge_runs0,
                                             "breakdown_ms": breakdown}
@@ -703,13 +700,11 @@ def phase_loop(engine, card: str):
     """The merge kernel (csrc/merge.cu through ops/merge.py) at the main
     path's bucket shapes: english 8 x 2048 and 16 x 512, cjk 384 x 1024 and
     4096 x 512, from the first chunk of one english and one cjk corpus.
-    Each bucket's merge timed four ways, outputs equal (exact): the kernel
+    Each bucket's merge timed three ways, outputs equal (exact): the kernel
     alone (one launch on the bucket's matrix), the bucket as the engine
-    replays it (its matrix gathered, then the kernel: one graph), the
-    bucket with the plain loop as one CUDA graph WHILE node
-    (``merge_rows_t3_plain(rounds=DEVICE)``, csrc/loop.cu: the yardstick,
-    on no path of the engine), and the plain loop eagerly (one exit test
-    read back a round); beside the bytes' bound."""
+    replays it (its matrix gathered, then the kernel: one graph), and the
+    plain loop eagerly (one exit test read back a round); beside the bytes'
+    bound."""
     import torch
 
     from jtokkit_tpu_torch.engine import device as dev_mod
@@ -743,18 +738,14 @@ def phase_loop(engine, card: str):
                     tab.bucket_counts[b], lanes=lanes, cap=cap)
                 return fn(mat_t, c_len, *tables, rounds=rounds)
 
-            units = {}
-            for label, fn in (("bucket", merge.merge_rows_t3),
-                              ("while", merge.merge_rows_t3_plain)):
-                unit = units[label] = dev_mod.ColdUnit(("loop", b, label), [])
-                engine._capture(lambda fn=fn: bucket(fn, 1), [unit],
-                                lambda u, fn=fn: bucket(fn, merge.DEVICE), shared_pool=False)
+            unit = dev_mod.ColdUnit(("loop", b), [])
+            engine._capture(lambda: bucket(merge.merge_rows_t3, 1), [unit],
+                            lambda u: bucket(merge.merge_rows_t3, merge.DEVICE),
+                            shared_pool=False)
             kernel = merge.merge_rows_t3(mat_t, c_len, *tables, rounds=merge.DEVICE)
             want = merge.merge_rows_t3_plain(mat_t, c_len, *tables)
-            outs = {"kernel": kernel}
-            for label, unit in units.items():
-                unit.graph.replay()  # no scan inside: nothing to account
-                outs[label] = unit.out
+            unit.graph.replay()  # no scan inside: nothing to account
+            outs = {"kernel": kernel, "bucket": unit.out}
             torch.cuda.synchronize()
             err = 0
             for label, (ids, act, counter) in outs.items():
@@ -770,8 +761,7 @@ def phase_loop(engine, card: str):
                 "rounds": want[2],
                 "ms": event_ms(lambda: merge.merge_rows_t3(mat_t, c_len, *tables,
                                                           rounds=merge.DEVICE), 20),
-                "bucket_ms": event_ms(units["bucket"].graph.replay, 20),
-                "while_ms": event_ms(units["while"].graph.replay, 5),
+                "bucket_ms": event_ms(unit.graph.replay, 20),
                 "plain_ms": event_ms(lambda: merge.merge_rows_t3_plain(
                     mat_t, c_len, *tables), 2),
                 # the bucket's bytes in, ids and active lanes out, once
@@ -779,10 +769,10 @@ def phase_loop(engine, card: str):
             }
             shapes.append(row)
             log(f"merge kernel {flavor} bucket {b} ({lanes} lanes, cap {cap}, {cnt} live): "
-                f"ids, active lanes and {want[2]} rounds equal the plain loop's, the WHILE "
-                f"replay's and the bucket replay's; kernel {row['ms']:.4f} ms, bucket replay "
-                f"{row['bucket_ms']:.4f} ms, WHILE replay {row['while_ms']:.3f} ms, plain "
-                f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms [{card}]")
+                f"ids, active lanes and {want[2]} rounds equal the plain loop's and the "
+                f"bucket replay's; kernel {row['ms']:.4f} ms, bucket replay "
+                f"{row['bucket_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                f"{row['bound_ms']:.5f} ms [{card}]")
     if [(r["flavor"], r["lanes"]) for r in shapes] != [
             ("english", 8), ("english", 16), ("cjk", 384), ("cjk", 4096)]:
         raise AssertionError(f"phase 5b met other buckets: {[r['lanes'] for r in shapes]}")
@@ -846,10 +836,11 @@ def phase_decode(enc, results, card: str):
 
 def phase_long_pieces(engine, card: str):
     """Chunks with a piece over the largest merge bucket, at 1 MiB chunks, on
-    the native_long=False engine: the first encode (captures the fallback's
-    merge graphs), the count and a second encode replay them; the same
-    encode on an engine without the graph cache reads each round's exit
-    test back."""
+    the native_long=False engine: the first encode (captures what is new),
+    the count and a second encode replay it, and the fallback's buckets
+    merge on the merge kernel, read back with their counters; the same
+    encode on an engine without the graph cache reads each bucket's rounds
+    back first."""
     import torch
 
     from jtokkit_tpu_torch.engine import presplit
@@ -895,7 +886,7 @@ def phase_long_pieces(engine, card: str):
             f"long pieces: {launches} scan launches for {runs} Stage A runs "
             f"and {3 * chunks} fallback chunks")
     if first["exit_tests"] or cnt["exit_tests"] or second["exit_tests"] \
-            or second["captures"] or second["stage_a_runs"]:
+            or second["captures"] or second["stage_a_runs"] or second["merge_kernel_runs"] <= 0:
         raise AssertionError(f"long pieces: the cached path read exit tests back or "
                              f"captured again: {first}, {cnt}, {second}")
     # the same pass without the graph cache: rounds and tokens to hold it to
@@ -912,7 +903,8 @@ def phase_long_pieces(engine, card: str):
     log(f"long pieces: {mb:.2f} MB, {len(docs)} docs, {chunks} fallback chunks, "
         f"{pieces} pieces merged on the host, {second['merge_rounds']} merge rounds in an "
         f"encode ({eager_c['merge_rounds']} eagerly), {launches} scan launches (encode, "
-        f"count, encode); first encode {enc_s:.2f} s ({first['captures']} captures), count "
+        f"count, encode), {second['merge_kernel_runs']} merge kernel runs in the second "
+        f"encode; first encode {enc_s:.2f} s ({first['captures']} captures), count "
         f"{cnt_s:.2f} s, second encode {enc2_s:.2f} s ({second['host_reads']} host reads, "
         f"0 exit tests, {second['graph_replays']} replays); without the graph cache "
         f"{eager_s:.2f} s ({eager_c['host_reads']} host reads, {eager_c['exit_tests']} exit "
@@ -1527,8 +1519,9 @@ def profiled_kernels(fn):
 
 
 def wide_graphs(wide, result, narrow: dict, card: str):
-    """The wide engine (``wide_min_lanes=64``, native_long=False) over the
-    cjk corpus as graph replays: the cold encode, the pass that captures one
+    """A second native_long=False engine over the cjk corpus, whose buckets
+    of 64 lanes and more the JAX package gives its wide-bucket merge, as
+    graph replays: the cold encode, the pass that captures one
     encode graph per chunk, three replayed encodes, the count's capture
     pass and three replayed counts. Each replayed pass makes 1 host read and
     one replay per graph, with no scan launch by the wrapper, no merge
@@ -1612,8 +1605,8 @@ def wide_graphs(wide, result, narrow: dict, card: str):
     blocks = plan.mapped_count
     if total != want_total or not blocks or any(b.graph is None for b in blocks):
         raise AssertionError(f"wide engine: count {total} ({want_total}) or no graphs")
-    if [(b.n_live, len(b.bufs)) for b in blocks] != [(1, 1)] * len(ok):
-        raise AssertionError("wide engine: the count's blocks are not one chunk each")
+    if sum(b.n_live for b in blocks) != len(ok):
+        raise AssertionError("wide engine: the count's blocks do not hold every chunk once")
     count_rates = replayed(lambda: wide.count_tokens_corpus(None, plan=plan), blocks,
                            "count", lambda total: total == want_total)
     out = {
@@ -1628,8 +1621,8 @@ def wide_graphs(wide, result, narrow: dict, card: str):
         "graph_pool_bytes": plan.graph_pool_bytes, "count_warm_mb_s": count_rates,
         "count_rounds_recorded": sum(b.n_rounds for b in blocks),
     }
-    log(f"wide engine (wide_min_lanes=64, native_long=False) cjk {mb:.2f} MB, {len(plan)} "
-        f"chunks, {wide_buckets} wide buckets: encode cold {mb / cold_s:.2f} MB/s "
+    log(f"second engine (native_long=False) cjk {mb:.2f} MB, {len(plan)} "
+        f"chunks, {wide_buckets} buckets of 64 lanes and more: encode cold {mb / cold_s:.2f} MB/s "
         f"({cold_rounds} merge rounds); capture pass {capture_s:.2f} s ({len(graphs)} "
         f"graphs, capture {plan.encode_capture_seconds:.2f} s, pool "
         f"{plan.encode_pool_bytes} bytes, {out['encode_rounds_recorded']} merge rounds "
@@ -1639,7 +1632,7 @@ def wide_graphs(wide, result, narrow: dict, card: str):
         f"{' / '.join(f'{x:.2f}' for x in count_rates)} MB/s; each replayed pass 1 host "
         f"read, one replay per graph, 0 scan launches by the wrapper, 0 merge rounds, 0 "
         f"Stage A runs; ids equal the encode phase's and the eager dispatch chunk by chunk "
-        f"under set_sync_debug_mode('error'). Narrow engine on the same corpus: encode "
+        f"under set_sync_debug_mode('error'). First engine on the same corpus: encode "
         f"capture {narrow['encode_capture_s']:.2f} s, pool {narrow['encode_pool_bytes']} "
         f"bytes, replayed {' / '.join(f'{x:.2f}' for x in narrow['encode_warm_mb_s'])} "
         f"MB/s; count capture {narrow['capture_s']:.2f} s, pool "
@@ -1653,8 +1646,8 @@ def phase_steady_state(engine, results, card: str):
     """The steady-state path over warmed corpus plans, at full width, on the
     native_long=False engine: the corpus-mapped count and the warmed encode
     as graph replays, the eager cached dispatch beside the replayed one, the
-    fetch formats timed with the pack inside graphs, and the wide-bucket
-    engine."""
+    fetch formats timed with the pack inside graphs, and a second engine
+    over the buckets the JAX package gives its wide-bucket merge."""
     import numpy as np
     import torch
 
@@ -1871,8 +1864,9 @@ def phase_steady_state(engine, results, card: str):
         "chunks": len(plan), "blocks": [[b.n_live, len(b.bufs)] for b in blocks],
     }
 
-    # ---- the wide engine: buckets of 64 lanes and more through merge_exact
-    wide = DeviceEngine.from_oracle(engine.oracle, wide_min_lanes=64, native_long=False)
+    # ---- a second engine over buckets of 64 lanes and more, which the JAX
+    # package merges with its wide-bucket hybrid
+    wide = DeviceEngine.from_oracle(engine.oracle, native_long=False)
     if wide.device.type != "cuda":
         raise AssertionError(f"wide engine on {wide.device}")
     wide_docs = [
@@ -1895,20 +1889,6 @@ def phase_steady_state(engine, results, card: str):
         raise AssertionError(f"steady state: {launches} scan launches, {replayed} replayed "
                              f"scans, {plain_calls} plain calls")
 
-    # the wide merge's column scans (torch.cummax / cumsum along dim 0) at a
-    # 512-lane bucket of 4,096 pieces
-    from jtokkit_tpu_torch.ops import colscan
-    from jtokkit_tpu_torch.scripts.profile_gather import event_ms
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
-    x = torch.randint(-1, 1000, (512, 4096), generator=gen, device="cuda", dtype=torch.int32)
-    col_ms = {k: event_ms(lambda k=k: colscan.col_scan([x], [k]), 50)
-              for k in ("last", "max", "add")}
-    summary["colscan_512x4096_ms"] = col_ms
-    log("col_scan [512, 4096] int32 along dim 0: "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in col_ms.items())
-        + f" (bound {2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms) [{card}]")
     # what a replayed pass really launches, from the device trace: one pass
     # per plan, after every timed pass (no rate is taken once a tracer has
     # been attached to the process)
@@ -2034,7 +2014,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from jtokkit_tpu_torch import native
-    from jtokkit_tpu_torch.ops import gather, loop, merge, scan
+    from jtokkit_tpu_torch.ops import gather, merge, scan
 
     def timed_build(fn):
         t = time.time()
@@ -2042,7 +2022,7 @@ def main() -> int:
         return time.time() - t
 
     t = time.time()
-    libraries = [scan.LIBRARY, gather.LIBRARY, loop.LIBRARY, merge.LIBRARY]
+    libraries = [scan.LIBRARY, gather.LIBRARY, merge.LIBRARY]
     builds = [(lib.name, lib.build) for lib in libraries] + [("native", native.build)]
     with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each, together
         futures = [(name, pool.submit(timed_build, fn)) for name, fn in builds]
@@ -2154,28 +2134,6 @@ def main() -> int:
         "library_ms": None,
         "shape": {k: loop_rows[0][k] for k in ("flavor", "lanes", "cap", "count", "rounds")},
         "shapes": loop_rows,
-    }, {
-        "name": "device_while",
-        "route": "cuda",
-        "source": "jtokkit_tpu_torch/csrc/loop.cu",
-        # not a Pallas kernel: the counterpart of the merge loops'
-        # lax.while_loop (merge.py:445 in the fallback, merge_exact.py:197)
-        "replaces": REPLACES_LOOP,
-        "does": "a CUDA graph WHILE node per merge loop: its step kernel sets the "
-                "node's condition from the loop's test on the card and counts the round",
-        # runs of the step kernel in the main path's calls, from the round
-        # counters read back (one per loop run and one per round; the kernel
-        # runs inside graph replays, never launched by the wrapper itself):
-        # none since the narrow buckets merge in merge_t3
-        "launches": main_row["loop_steps"],
-        "max_abs_err": loop_err,
-        # the narrow bucket's merge as one WHILE node: phase 5b's yardstick
-        "ms": loop_rows[0]["while_ms"],
-        "plain_ms": loop_rows[0]["plain_ms"],
-        "bound_ms": loop_rows[0]["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "shape": {k: loop_rows[0][k] for k in ("flavor", "lanes", "cap", "count", "rounds")},
     }]
     summary = {name: {**main_row["corpora"][name], "decode_mb_s": decode_rates[name]}
                for name in results}

@@ -1,16 +1,17 @@
 // The byte-pair merge of one Stage B bucket, every piece merged to its end
 // in one launch, for Hopper (sm_90a).
 //
-// Replaces no TPU kernel. It is the counterpart of the JAX package's
-// lax.while_loop around merge_rows_t3 (jtokkit_tpu/ops/merge.py), which runs
+// Replaces no TPU kernel. It is the counterpart of the JAX package's XLA
+// while loop around merge_rows_t3 (jtokkit_tpu/ops/merge.py), which runs
 // the merge as global rounds over a [lanes, cap] matrix, one merge a piece a
 // round, because that is how a loop fits into XLA. The merge of one piece
 // depends on no other piece, so here each piece (a column of the matrix)
 // runs the reference's sequential min-rank merge
 // (M/GptBytePairEncoding.java:200-275) to its end on its own: no global
-// round, no WHILE node, no read by the host. Wrapped by
-// jtokkit_tpu_torch/ops/merge.py::merge_rows_t3, which keeps the round loop
-// as the plain version.
+// round, no read by the host. Wrapped by
+// jtokkit_tpu_torch/ops/merge.py::merge_rows_t3 (and merge_rows, the
+// long-piece fallback's, over the transposed matrix), which keeps the round
+// loop as the plain version.
 //
 // Semantics, bit for bit those of the plain loop: ids[w, r] and active[w, r]
 // for every lane w < lanes of every column r < cap, the ids left at lanes

@@ -3,8 +3,9 @@ warmed corpus plan, and batch decode on a CUDA card.
 
 Counterpart of ``jtokkit_tpu/engine/device.py`` (the staged path, the warmed
 ``CorpusPlan`` passes with the packed token fetch and the corpus-mapped
-count, the wide-bucket routing, the long-piece fallback and the decode
-methods). Per batch (documents -> token ids):
+count, the long-piece fallback and the decode methods; the reference's
+wide-bucket hybrid merge has no counterpart here: every bucket merges on
+the merge kernel). Per batch (documents -> token ids):
 
 1. Documents are packed into flat byte chunks (``chunk_bytes``, 1 MiB by
    default) with one separator byte between documents; validity is derived
@@ -19,13 +20,14 @@ methods). Per batch (documents -> token ids):
    Chunks with a piece longer than the largest merge bucket (4096 bytes of
    one regex piece) leave the staged path (``fallback_chunks``): their
    piece boundaries (``ops/boundaries.piece_starts``) and the row-major
-   merge of every piece up to 4096 bytes (``ops/merge.merge_rows``) still
-   run on the device, and only the oversized pieces themselves are merged
-   on the host, one by one (``host_pieces``). Chunks whose pieces over 64
-   bytes may cover more than a quarter of their bytes go to the native C++
-   host engine instead (``native.py``; ``native_chunks``), as in the
-   reference: there the device merge would run one round per byte of the
-   longest piece. ``native_long=False`` keeps them on the device.
+   merge of every piece up to 4096 bytes (``ops/merge.merge_rows``, on
+   CUDA the merge kernel) still run on the device, and only the oversized
+   pieces themselves are merged on the host, one by one (``host_pieces``).
+   Chunks whose pieces over 64 bytes may cover more than a quarter of
+   their bytes go to the native C++ host engine instead (``native.py``;
+   ``native_chunks``), as in the reference: there the device merge would
+   run one round per byte of the longest piece. ``native_long=False``
+   keeps them on the device.
 4. Stage B per nonempty bucket: exact byte-pair merge
    (``ops/pipeline.merge_bucket_v3``), capacity the smallest power of two
    covering the bucket's count; on CUDA ONE launch of the merge kernel
@@ -44,16 +46,15 @@ counterpart of the reference's jit caches keyed by shape): Stage A of a
 chunk is the replay of a CUDA graph keyed by (variant, capacity divisors,
 flat size, document slots), its Stages B and C one graph keyed by that and
 the buckets' capacities, whose live counts it takes from the piece table on
-the card, and the fallback's bucket merge one graph per (rows, width). A
-shape met for the first time is captured then. A bucket's merge inside
-these graphs is one merge kernel, which writes the rounds the merge loop
-would have run into a counter; the wide hybrid's and the fallback's merge
-loops are CUDA graph WHILE nodes (``ops/loop.py``) that run their rounds
-on the card. So the only host reads are the two above (a count needs only
-the document counts) and the fetch wait; the round counters come back with
-the last read. ``cold_cache=False`` (the default on a CPU device) issues
-every op eagerly and reads each bucket's round counter back (on the CPU:
-each merge loop's exit test after every round).
+the card. A shape met for the first time is captured then. A bucket's
+merge inside these graphs is one merge kernel, which writes the rounds the
+merge loop would have run into a counter. So the only host reads are the
+two above (a count needs only the document counts) and the fetch wait; the
+round counters come back with the last read. The fallback's bucket merge
+is one kernel launch and one read of its ids, active lanes and counter.
+``cold_cache=False`` (the default on a CPU device) issues every op eagerly
+and reads each bucket's round counter back (on the CPU: each merge loop's
+exit test after every round).
 
 Steady state (``plan = preload_corpus(texts)``, then the batch methods with
 ``plan=plan``): the first pass over a plan is the cold pass above and leaves
@@ -70,7 +71,7 @@ of the reference's jitted per-stage programs).
 :meth:`DeviceEngine.encode_plan_tokens` is the same pass kept on the
 device: no copy, the plan's token ids as one int32 tensor.
 ``count_tokens_corpus`` over a warmed plan runs the corpus-mapped count:
-blocks of up to 8 chunks (a chunk with a wide bucket alone), each ONE CUDA
+blocks of up to 8 chunks of one shape, each ONE CUDA
 graph captured once per plan and replayed per pass, and one scalar fetch.
 On a CPU device both bodies run eagerly. All cached values derive from the
 plan's immutable buffers, so reuse is exact; tokens are computed from the
@@ -104,8 +105,8 @@ import numpy as np
 import torch
 
 from ..ops import (
-    _build, boundaries, classify, decode as decode_ops, loop, merge,
-    merge_exact, pipeline, scan, stage4,
+    _build, boundaries, classify, decode as decode_ops, merge, pipeline, scan,
+    stage4,
 )
 from ..utils.spans import span
 from ..vocab import tables as vtables
@@ -217,9 +218,6 @@ class _Captured:
         self.n_scans = 0    # scan calls recorded in the graph
         self.n_rounds = 0   # merge rounds recorded in the graph (fixed counts)
         self.n_merge_kernels = 0  # merge kernel launches recorded in the graph
-        # the graphs of its device loops' bodies (ops/loop.py), whose memory
-        # pools hold the bodies' temporaries: kept as long as the graph
-        self.bodies = []
 
 
 class ColdUnit(_Captured):
@@ -227,9 +225,9 @@ class ColdUnit(_Captured):
     one chunk at one shape (``key``), recorded once and replayed for every
     chunk of that shape. ``inputs`` are its static input tensors: each run
     copies the chunk's tensors into them on the card, and the caller clones
-    what it keeps of ``out`` before the next run overwrites it. The graph
-    and its loop bodies each have a memory pool of their own, so units
-    replay in any order. On a CPU device the body runs eagerly every time.
+    what it keeps of ``out`` before the next run overwrites it. Each graph
+    has a memory pool of its own, so units replay in any order. On a CPU
+    device the body runs eagerly every time.
     """
 
     def __init__(self, key, inputs):
@@ -267,10 +265,10 @@ class EncodeGraph(_Captured):
 
 class ChunkResults(list):
     """One result per chunk (:meth:`DeviceEngine._process_chunks`).
-    ``pending`` holds (chunk cache entry, device int32 round counters) per
-    ok-chunk whose merges ran as device loops: the caller fetches them with
-    its last read (``_read(t, results.pending)``), which fills the entries'
-    rounds."""
+    ``pending`` holds (chunk cache entry, device int32 round counters, one a
+    bucket) per ok-chunk whose merges left their rounds on the device: the
+    caller fetches them with its last read (``_read(t, results.pending)``),
+    which fills the entries' rounds."""
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -296,7 +294,6 @@ class DeviceEngine:
     def __init__(self, name: str, pattern: str, packed: vtables.PackedVocabulary,
                  oracle: OracleEngine, *, device=None,
                  chunk_bytes: int = CHUNK_BYTES,
-                 wide_min_lanes: int = 1 << 30,
                  native_long: bool = True,
                  cold_cache: Optional[bool] = None):
         self.name = name
@@ -307,7 +304,7 @@ class DeviceEngine:
         if self.device.type == "cuda":
             # the kernels this engine launches, built together (one nvcc
             # each) where this checkout has no build of them yet
-            _build.build_all([scan.LIBRARY, loop.LIBRARY, merge.LIBRARY])
+            _build.build_all([scan.LIBRARY, merge.LIBRARY])
         self.tables = DeviceTables.from_packed(packed, self.device)
         self.chunk_bytes = max(2, int(chunk_bytes) & ~1)
         self._flat_sizes = tuple(
@@ -321,9 +318,10 @@ class DeviceEngine:
         # cold passes that ran Stage A again for a capacity overflow (each
         # one more read of metas)
         self.capacity_retries = 0
-        # rounds the byte-pair merge loops ran (:data:`merge.MERGE_ROUNDS`,
-        # per engine: the eager loops as they run, the device loops when
-        # their counters are read back), and the pieces sent to them (the
+        # rounds the byte-pair merge loops ran, or would have run where the
+        # merge kernel ran (:data:`merge.MERGE_ROUNDS`, per engine: the eager
+        # merges as they run, the device forms when their counters are read
+        # back), and the pieces sent to them (the
         # bucket counts of every chunk routed to Stages B-C, from the metas)
         self.merge_rounds = 0
         self.miss_pieces = 0
@@ -337,9 +335,6 @@ class DeviceEngine:
         # engine's paths (the cold merge loops' exit tests included) and the
         # one wait on a pass's token copies
         self.host_reads = 0
-        # merge-engine crossover: buckets with lanes >= wide_min_lanes run
-        # the wide-bucket hybrid (ops/merge_exact); off by default
-        self.wide_min_lanes = int(wide_min_lanes)
         # long-piece routing: chunks dominated by pieces over 64 bytes go to
         # the native host engine (built at the first such chunk), counted in
         # native_chunks
@@ -353,20 +348,18 @@ class DeviceEngine:
         # replays of the engine's graphs (plans' and the un-planned path's);
         # the Stage A runs, scans and merge rounds inside a replay pass
         # through no Python and are in no counter (a unit's n_scans and
-        # n_rounds say what it recorded; device loops report their rounds
-        # through their counters)
+        # n_rounds say what it recorded; device-form merges report their
+        # rounds through their counters)
         self.graph_replays = 0
         # the un-planned path's caches, the counterpart of the reference's
         # jit caches keyed by shape (on by default on CUDA; off, that path
-        # issues every op eagerly and reads each merge loop's exit test back):
+        # issues every op eagerly and reads each bucket's rounds back):
         # Stage A by (variant, divs, N, D), Stages B and C of a chunk by
-        # (variant, divs, N, D, bucket capacities, want_tokens), the
-        # long-piece fallback's merge by (rows, width)
+        # (variant, divs, N, D, bucket capacities, want_tokens)
         self.cold_cache = (
             self.device.type == "cuda" if cold_cache is None else bool(cold_cache)
         )
-        self._cold = {"stage_a": OrderedDict(), "stages_b_c": OrderedDict(),
-                      "flat": OrderedDict()}
+        self._cold = {"stage_a": OrderedDict(), "stages_b_c": OrderedDict()}
         self.cold_captures = 0          # units captured (CUDA)
         # spent in _capture's torch.cuda.empty_cache() (plans' captures)
         self.empty_cache_seconds = 0.0
@@ -376,7 +369,6 @@ class DeviceEngine:
     @classmethod
     def from_oracle(cls, oracle: OracleEngine, *, device=None,
                     chunk_bytes: int = CHUNK_BYTES,
-                    wide_min_lanes: int = 1 << 30,
                     native_long: bool = True,
                     cold_cache: Optional[bool] = None) -> "DeviceEngine":
         device = resolve_device(device)
@@ -385,8 +377,7 @@ class DeviceEngine:
         )
         return cls(oracle.name, oracle.pattern, packed, oracle,
                    device=device, chunk_bytes=chunk_bytes,
-                   wide_min_lanes=wide_min_lanes, native_long=native_long,
-                   cold_cache=cold_cache)
+                   native_long=native_long, cold_cache=cold_cache)
 
     def _native_engine(self):
         """The shared native host engine for long-piece chunks, looked up at
@@ -415,29 +406,16 @@ class DeviceEngine:
 
     def _settle_rounds(self, pending, flat) -> None:
         """Fill the chunk cache entries of ``pending`` ((entry, device round
-        counters) per ok-chunk of a cold pass run from the graph cache) from
-        their counters read back as ``flat``: per bucket an int, or a tuple
-        per phase where the bucket is wide. The rounds are added to
-        ``merge.MERGE_ROUNDS`` and ``merge_rounds``, and the step kernel's
-        runs of the wide buckets' loops to ``loop.STEP_RUNS`` (a narrow
-        bucket's counter is the merge kernel's: no step kernel ran)."""
+        counters, one a bucket) per ok-chunk of a cold pass run from the
+        graph cache) from their counters read back as ``flat``. The rounds
+        are added to ``merge.MERGE_ROUNDS`` and ``merge_rounds``."""
         pos = 0
         for entry, counters in pending:
             ran = [int(x) for x in flat[pos : pos + counters.numel()]]
             pos += counters.numel()
             merge.MERGE_ROUNDS += sum(ran)
             self.merge_rounds += sum(ran)
-            rounds = []
-            for _b, lanes, _cap, _n in entry["caps"]:
-                if lanes >= self.wide_min_lanes:
-                    k = len(merge_exact.phase_chain(lanes))
-                    rounds.append(tuple(ran[:k]))
-                    loop.count_steps(ran[:k])
-                else:
-                    k = 1
-                    rounds.append(ran[0])
-                ran = ran[k:]
-            entry["rounds"] = rounds
+            entry["rounds"] = ran
         pending.clear()
 
     # ------------------------------------------------------------------
@@ -573,35 +551,27 @@ class DeviceEngine:
 
     def _merge_bucket(self, buf_dev, t, b: int, lanes: int, cap: int, count_b,
                       rounds=None):
-        """Stage B for bucket ``b`` of piece table ``t``: the wide hybrid for
-        ``lanes >= wide_min_lanes``, else the sequential merge.
+        """Stage B for bucket ``b`` of piece table ``t``
+        (:func:`pipeline.merge_bucket_v3`).
 
         ``rounds=None`` is the cold form (its exit tests are host reads,
         counted in ``ops/merge`` where they are read); ``merge.DEVICE`` the
-        device loops; else what a cold call returned last. Returns (cols,
-        [(ids, active) per phase], rounds run: an int, or a tuple per phase
-        when wide; 0-d int32 tensors in the device form).
+        device form; else what a cold call returned last. Returns (cols, ids,
+        active, rounds run: an int, or a 0-d int32 tensor in the device
+        form).
         """
         T = self.tables
         tests, rounds_before = merge.EXIT_TESTS, merge.MERGE_ROUNDS
         launches = merge.KERNEL_LAUNCHES
-        if lanes >= self.wide_min_lanes:
-            cols, outs, ran = merge_exact.merge_bucket_exact(
-                buf_dev, t.starts, t.lens, t.miss_sorted, t.group_start[b],
-                count_b, T.byte_to_id, T.byte_pair_seed, T.pair_rows_cat,
-                T.table_mask, lanes=lanes, cap=cap, rounds=rounds,
-            )
-        else:
-            cols, ids, active, ran = pipeline.merge_bucket_v3(
-                buf_dev, t.starts, t.lens, t.miss_sorted, t.group_start[b],
-                count_b, T.byte_to_id, T.byte_pair_id, T.pair_rows_cat,
-                T.table_mask, lanes=lanes, cap=cap, rounds=rounds,
-            )
-            outs = [(ids, active)]
+        out = pipeline.merge_bucket_v3(
+            buf_dev, t.starts, t.lens, t.miss_sorted, t.group_start[b],
+            count_b, T.byte_to_id, T.byte_pair_id, T.pair_rows_cat,
+            T.table_mask, lanes=lanes, cap=cap, rounds=rounds,
+        )
         self.host_reads += merge.EXIT_TESTS - tests
         self.merge_rounds += merge.MERGE_ROUNDS - rounds_before
         self.merge_kernel_runs += merge.KERNEL_LAUNCHES - launches
-        return cols, outs, ran
+        return out
 
     def _stages_b_c(self, buf_dev, de_dev, t, caps, rounds, want_tokens: bool,
                     want_doc_counts: bool):
@@ -616,25 +586,21 @@ class DeviceEngine:
         counts = pipeline.counts_init(t.hit, t.n_pieces)
         bucket_outs, ran = [], []
         for k, (b, lanes, cap, cnt) in enumerate(caps):
-            cols, outs, r = self._merge_bucket(
+            cols, ids, active, r = self._merge_bucket(
                 buf_dev, t, b, lanes, cap, cnt,
                 rounds if rounds is None or rounds == merge.DEVICE else rounds[k],
             )
             ran.append(r)
-            for _ids_k, act_k in outs:
-                counts = pipeline.counts_add_bucket(counts, cols, act_k)
-            bucket_outs.append((cols, outs))
+            counts = pipeline.counts_add_bucket(counts, cols, active)
+            bucket_outs.append((cols, ids, active))
         offsets, n_tokens = pipeline.make_offsets(counts, t.n_pieces)
         tokens = None
         if want_tokens:
             tokens = pipeline.scatter_hits(
                 buf_dev.shape[0], t.hit, offsets, t.n_pieces
             )
-            for cols, outs in bucket_outs:
-                for ids_k, act_k in outs:
-                    tokens = pipeline.scatter_bucket(
-                        tokens, ids_k, act_k, cols, offsets
-                    )
+            for cols, ids, active in bucket_outs:
+                tokens = pipeline.scatter_bucket(tokens, ids, active, cols, offsets)
         doc_counts = None
         if want_doc_counts:
             doc_counts = stage4.doc_token_counts_v4(
@@ -732,12 +698,12 @@ class DeviceEngine:
         (:meth:`_stream_stage_a`).
 
         With ``cold_cache`` (the default on CUDA) each chunk's Stage A, and
-        its Stages B and C with merge loops that run on the card, are
+        its Stages B and C with their merges in the device form, are
         replays from the engine's graph cache (:meth:`_cold_stage_a`,
-        :meth:`_cold_stages_b_c`); the rounds those loops ran come back in
+        :meth:`_cold_stages_b_c`); the rounds of those merges come back in
         ``results.pending`` for the caller's last read. Without it every op
         is issued eagerly and each bucket's merge reads its rounds back (on
-        the CPU, and in a wide bucket, its exit test after every round).
+        the CPU, its exit test after every round).
 
         Returns a :class:`ChunkResults`, one result per chunk: ("ok", parts,
         tokens, n_tokens, doc_counts) with device tensors, or ("fallback" or
@@ -943,11 +909,10 @@ class DeviceEngine:
         counts and the bucket starts come from the piece table on the
         device, so one unit serves every chunk whose counts quantize to the
         same capacities. Its merges run in the device form (``merge.DEVICE``:
-        one merge kernel a narrow bucket, WHILE loops in a wide one).
+        one merge kernel a bucket).
 
         Returns (tokens or None, n_tokens, doc_counts, int32 round counters
-        in bucket order, phase by phase where a bucket is wide), all on the
-        device.
+        in bucket order), all on the device.
         """
         sig = tuple((b, lanes, cap) for b, lanes, cap, _n in caps)
 
@@ -959,16 +924,13 @@ class DeviceEngine:
 
         def record(u):
             tokens, n_tokens, doc_counts, ran = body(u, merge.DEVICE)
-            counters = [r for x in ran for r in (x if isinstance(x, tuple) else (x,))]
-            counters = (torch.stack(counters) if counters
+            counters = (torch.stack(ran) if ran
                         else torch.zeros(0, dtype=torch.int32, device=self.device))
             return tokens, n_tokens, doc_counts, counters
 
         def warm(u):
-            # every op of the body once: one round a loop
-            body(u, [tuple(1 for _ in merge_exact.phase_chain(lanes))
-                     if lanes >= self.wide_min_lanes else 1
-                     for _b, lanes, _cap in sig])
+            # every op of the body once: one round a bucket
+            body(u, [1] * len(sig))
 
         return self._cold_run(
             "stages_b_c",
@@ -986,7 +948,6 @@ class DeviceEngine:
                for k, us in units.items()}
         out["units"] = sum(len(us) for us in units.values())
         out["pool_bytes"] = sum(u.pool_bytes for us in units.values() for u in us)
-        out["loops"] = sum(len(u.bodies) for us in units.values() for u in us)
         out["captures"] = self.cold_captures
         out["capture_seconds"] = self.cold_capture_seconds
         return out
@@ -1170,31 +1131,28 @@ class DeviceEngine:
     def _merge_flat(self, mat: np.ndarray, blens: np.ndarray, n: int):
         """The fallback's merge of one bucket (``mat`` uint8[R, L] rows of
         piece bytes, ``blens`` their lengths, the first ``n`` rows live):
-        (ids, active) of those rows on the host.
+        (ids, active) of those rows on the host. On CUDA the merge is one
+        launch of the merge kernel.
 
-        With ``cold_cache`` it is a replay of the cached unit of shape (R,
-        L) (R and L are quantized), whose loop runs on the card, and ONE
+        With ``cold_cache`` the merge leaves its rounds on the device and ONE
         read brings back the ids, the active lanes and the rounds; without
-        it the loop is eager and reads each exit test back.
+        it the merge reads its rounds back first (on the CPU: each exit
+        test).
         """
         t = self.tables
         args = (t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask)
-        srcs = [torch.from_numpy(mat), torch.from_numpy(blens)]
+        mat_dev, lens_dev = (torch.from_numpy(x).to(self.device) for x in (mat, blens))
+        tests, launches = merge.EXIT_TESTS, merge.KERNEL_LAUNCHES
         if not self.cold_cache:
-            tests = merge.EXIT_TESTS
-            ids, active, ran = merge.merge_rows(
-                *(x.to(self.device) for x in srcs), *args)
+            ids, active, ran = merge.merge_rows(mat_dev, lens_dev, *args)
             self.host_reads += merge.EXIT_TESTS - tests
             self.merge_rounds += ran
+            self.merge_kernel_runs += merge.KERNEL_LAUNCHES - launches
             return self._read(ids[:n]), self._read(active[:n])
-        tests = merge.EXIT_TESTS
-        ids, active, rounds = self._cold_run(
-            "flat", mat.shape, srcs,
-            lambda u: merge.merge_rows(*u.inputs, *args, rounds=merge.DEVICE),
-            lambda u: merge.merge_rows(*u.inputs, *args, rounds=1),
-        )
+        ids, active, rounds = merge.merge_rows(mat_dev, lens_dev, *args, rounds=merge.DEVICE)
         # the plain version's exit tests (a CPU device); none on CUDA
         self.host_reads += merge.EXIT_TESTS - tests
+        self.merge_kernel_runs += merge.KERNEL_LAUNCHES - launches
         L = mat.shape[1]
         host = self._read(torch.cat([
             ids[:n].reshape(-1), active[:n].reshape(-1).to(torch.int32),
@@ -1202,7 +1160,6 @@ class DeviceEngine:
         ]))
         merge.MERGE_ROUNDS += int(host[-1])
         self.merge_rounds += int(host[-1])
-        loop.count_steps(host[-1:])
         return host[: n * L].reshape(n, L), host[n * L : 2 * n * L].reshape(n, L) != 0
 
     def _encode_chunk_fallback(self, buf, doc_ends, parts):
@@ -1461,17 +1418,16 @@ class DeviceEngine:
 
     def _count_body(self, variant, divs, sig, buf, doc_ends):
         """One chunk's token count (0-d tensor): Stage A, every merge bucket
-        of ``sig`` ((b, lanes, cap, rounds) per bucket; rounds per phase
-        where the bucket is wide) and the offsets, with the bucket counts
-        taken from the device and nothing read back."""
+        of ``sig`` ((b, lanes, cap, rounds) per bucket) and the offsets,
+        with the bucket counts taken from the device and nothing read
+        back."""
         table, _meta = self._stage_a(variant, divs, buf, doc_ends)
         counts = pipeline.counts_init(table.hit, table.n_pieces)
         for (b, lanes, cap, rounds) in sig:
-            cols, outs, _ran = self._merge_bucket(
+            cols, _ids, active, _ran = self._merge_bucket(
                 buf, table, b, lanes, cap, table.bucket_counts[b], rounds
             )
-            for _ids_k, act_k in outs:
-                counts = pipeline.counts_add_bucket(counts, cols, act_k)
+            counts = pipeline.counts_add_bucket(counts, cols, active)
         _offsets, n_tokens = pipeline.make_offsets(counts, table.n_pieces)
         return n_tokens
 
@@ -1492,9 +1448,7 @@ class DeviceEngine:
         columns and more rounds add no-op rounds). Each group is split into
         blocks of 8 chunks and one remainder padded to a power of two with
         all-zero chunks, which classify to zero pieces and count zero
-        tokens. A chunk with a wide bucket is a block of its own at its own
-        capacities and per-phase rounds: a wide body keeps one state per
-        phase, which a group's maximum would multiply.
+        tokens.
         """
         if plan.mapped_count is not None:
             return plan.mapped_count
@@ -1504,12 +1458,6 @@ class DeviceEngine:
             if c["kind"] != "ok":
                 continue
             buf, doc_ends, _parts, _a, buf_dev, de_dev = entry
-            if any(lanes >= self.wide_min_lanes for _b, lanes, _cap, _n in c["caps"]):
-                sig = tuple((b, lanes, cap, r) for (b, lanes, cap, _n), r
-                            in zip(c["caps"], c["rounds"]))
-                blocks.append(CountBlock(c["variant"], c["divs"], sig,
-                                         [buf_dev], [de_dev], 1))
-                continue
             key = (c["variant"], c["divs"], len(buf), doc_ends.shape[0])
             bykey.setdefault(key, []).append((buf_dev, de_dev, c))
         for (variant, divs, N, D), items in bykey.items():
@@ -1555,10 +1503,7 @@ class DeviceEngine:
                 for b in blocks
             }
             for blk in shapes.values():
-                once = tuple(
-                    (b, lanes, cap,
-                     tuple(min(x, 1) for x in r) if isinstance(r, tuple) else min(r, 1))
-                    for b, lanes, cap, r in blk.sig)
+                once = tuple((b, lanes, cap, min(r, 1)) for b, lanes, cap, r in blk.sig)
                 self._count_body(blk.variant, blk.divs, once, blk.bufs[0], blk.des[0])
 
         plan.capture_seconds, plan.graph_pool_bytes = self._capture(
@@ -1584,8 +1529,7 @@ class DeviceEngine:
         recording launches. What a recording adds to the engine's counters
         (Stage A runs, merge rounds) was recorded, not run: the counters are
         restored, and the unit keeps its scans, rounds and merge kernel
-        launches, and the graphs of its device loops' bodies
-        (``unit.bodies``).
+        launches.
 
         Returns (seconds spent, bytes reserved while capturing).
         """
@@ -1596,7 +1540,6 @@ class DeviceEngine:
             self._capture_stream = torch.cuda.Stream(dev)
         stream = self._capture_stream
         t0 = time.time()
-        loop.prepare(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             warm()
@@ -1610,7 +1553,6 @@ class DeviceEngine:
             self.empty_cache_seconds += time.time() - t
             pool = torch.cuda.graph_pool_handle()
         reserved = torch.cuda.memory_reserved(dev)
-        loop.take_bodies()
         for u in units:
             scans, rounds = scan.CAPTURED_CALLS, merge.MERGE_ROUNDS
             merges = merge.CAPTURED_CALLS
@@ -1627,7 +1569,6 @@ class DeviceEngine:
                     finally:
                         graph.capture_end()
             u.graph = graph
-            u.bodies = loop.take_bodies()
             u.n_scans = scan.CAPTURED_CALLS - scans
             u.n_rounds = merge.MERGE_ROUNDS - rounds
             u.n_merge_kernels = merge.CAPTURED_CALLS - merges
@@ -1684,8 +1625,7 @@ class DeviceEngine:
         """Total token count of a corpus.
 
         Over a warmed :class:`CorpusPlan` this is the mapped count: one graph
-        replay per block of up to 8 chunks (a chunk with a wide bucket is a
-        block of its own) and ONE scalar fetch per pass; chunks routed to
+        replay per block of up to 8 chunks and ONE scalar fetch per pass; chunks routed to
         the native engine or the long-piece fallback keep their path.
         """
         dev_total, host_total, pending = self._count_parts(texts, plan)

@@ -3,7 +3,8 @@
 Counterpart of the tables ``jtokkit_tpu/engine/device.py`` builds in
 ``DeviceEngine.__init__``: the packed class table, the byte and byte-pair
 seed tables, the stacked cuckoo pair rows, the two word-table halves and the
-decode pool. :meth:`DeviceTables.from_numpy` takes the same arrays as numpy
+decode pool (the reference's ``byte_pair_seed``, read only by its wide-bucket
+merge, has no counterpart here). :meth:`DeviceTables.from_numpy` takes the same arrays as numpy
 (for example the JAX engine's, converted with ``np.asarray``), so a test can
 feed both engines identical state.
 """
@@ -21,7 +22,7 @@ from ..vocab.tables import PackedVocabulary
 
 ARRAY_NAMES = (
     "class_table", "byte_to_id", "byte_pair_id", "pair_rows_cat",
-    "byte_pair_seed", "word_rows_cat", "token_offsets", "token_bytes",
+    "word_rows_cat", "token_offsets", "token_bytes",
 )
 
 
@@ -49,7 +50,6 @@ def packed_arrays(packed: PackedVocabulary) -> Dict[str, np.ndarray]:
         "byte_to_id": packed.byte_to_id,
         "byte_pair_id": packed.byte_pair_id,
         "pair_rows_cat": np.concatenate(pair_rows, axis=0),
-        "byte_pair_seed": packed.byte_pair_seed,
         "word_rows_cat": word_rows,
         "token_offsets": packed.token_offsets,
         "token_bytes": packed.token_bytes,
@@ -65,7 +65,6 @@ class DeviceTables:
     byte_to_id: torch.Tensor      # int32[256]
     byte_pair_id: torch.Tensor    # int32[65536]
     pair_rows_cat: torch.Tensor   # int32[2T, 4]
-    byte_pair_seed: torch.Tensor  # int32[65536]
     word_rows: Tuple[torch.Tensor, torch.Tensor]  # two int32[S, 8] halves
     token_offsets: torch.Tensor   # int32[n_tokens + 1]
     token_bytes: torch.Tensor     # uint8[pool]
@@ -88,7 +87,6 @@ class DeviceTables:
             byte_to_id=t["byte_to_id"],
             byte_pair_id=t["byte_pair_id"],
             pair_rows_cat=pair_rows,
-            byte_pair_seed=t["byte_pair_seed"],
             word_rows=(word_rows[:S].contiguous(), word_rows[S:].contiguous()),
             token_offsets=t["token_offsets"],
             token_bytes=t["token_bytes"],

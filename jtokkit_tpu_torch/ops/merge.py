@@ -1,8 +1,8 @@
 """Device byte-pair merge, vectorized across pieces.
 
 Counterpart of ``jtokkit_tpu/ops/merge.py`` (``pair_lookup_cat``,
-``t3_round``, ``rank_from_state``, ``merge_rows_t3``, and the row-major
-``merge_rows`` of the long-piece fallback). In Stage B pieces are columns of a [W, R] matrix
+``t3_round``, ``merge_rows_t3``, and the row-major ``merge_rows`` of the
+long-piece fallback). In Stage B pieces are columns of a [W, R] matrix
 (W = bucket width, R = pieces) and the sequential min-rank merge of the
 reference runs one step per column per round:
 
@@ -21,14 +21,11 @@ runs exactly ``k`` rounds and reads nothing back: a round with nothing to
 merge changes nothing (:func:`t3_round` masks every update by ``minval <
 MAX_RANK``), and the rounds a bucket needs depend only on its bytes, so a
 count taken from a cold pass over the same bytes is exact. The device form
-(``rounds=DEVICE``, the counterpart of the reference's ``lax.while_loop``)
-tests on the device: on CUDA it is recorded into the CUDA graph being
-captured as one conditional WHILE node (:func:`.loop.while_loop`), and the
-rounds it ran come back as a 0-d int32 tensor; its plain version, on the
-CPU, is the cold loop. :data:`MERGE_ROUNDS` counts the rounds of the cold
-and fixed forms where they run; the device form's rounds are added by
-whoever reads its counter back. :data:`EXIT_TESTS` counts the flags read
-back.
+(``rounds=DEVICE``) leaves the rounds it ran on the device, unread, as a
+0-d int32 tensor; in the plain loop it is the cold loop, which returns its
+count that way. :data:`MERGE_ROUNDS` counts the rounds of the cold and fixed
+forms where they run; the device form's rounds are added by whoever reads
+its counter back. :data:`EXIT_TESTS` counts the flags read back.
 
 That loop is the plain version of :func:`merge_rows_t3`
 (:func:`merge_rows_t3_plain`), and the wrapper takes it only for CPU
@@ -44,9 +41,11 @@ which the device form returns and the cold form reads back once (one exit
 test). :data:`KERNEL_LAUNCHES` counts the wrapper's launches,
 :data:`CAPTURED_CALLS` the launches recorded into a CUDA graph instead. The
 kernel replaces no TPU kernel: it is the counterpart of the JAX package's
-``lax.while_loop`` around ``merge_rows_t3``, bound by the longest piece's
+XLA while loop around ``merge_rows_t3``, bound by the longest piece's
 chain of dependent lookups, not by bytes. The row-major :func:`merge_rows`
-of the long-piece fallback keeps its loops.
+of the long-piece fallback is the same function of its pieces: on CUDA it
+runs on the kernel over the transposed matrix, and its plain version
+(:func:`merge_rows_plain`, the CPU path) is :func:`row_round`'s loop.
 """
 
 from __future__ import annotations
@@ -55,14 +54,12 @@ import ctypes
 
 import torch
 
-from . import loop
 from ._build import KernelLibrary, cuda_device_index
 from .classify import take_clip
-from .colscan import excl_rev
 from .stage4 import _mix
 
 MAX_RANK = 0x7FFFFFFF
-# the device loop form of run_rounds, merge_rows_t3 and merge_rows
+# the device form of merge_rows_t3 and merge_rows: the rounds stay on the device
 DEVICE = "device"
 
 _H1 = (0x9E3779B1, 0x85EBCA77, 0x2C1B3C6D)
@@ -173,56 +170,23 @@ def t3_round(ids, rank, active, pair_rows_cat, table_mask):
     return new_ids, new_rank, new_active
 
 
-def rank_from_state(ids, active, pair_rows_cat, table_mask):
-    """Pair ranks for a mid-merge [W, R] state: rank[w] = vocabulary rank of
-    (span w, next active span in its column), MAX_RANK when absent. ONE
-    full-matrix batched lookup; used to enter the sequential rounds after a
-    batched round or a compaction."""
-    (nxt_id,) = excl_rev([torch.where(active, ids, -1)], ["last"])
-    found = pair_lookup_cat(ids, nxt_id, pair_rows_cat, table_mask)
-    has = active & (nxt_id >= 0)
-    return torch.where(has & (found >= 0), found, MAX_RANK)
-
-
-def _exit_test(rank, _active):
-    return rank.amin() < MAX_RANK
-
-
-def _loop(step, more, state, rounds):
-    """Run ``state = step(*state)`` in one of the loop forms of
-    :func:`run_rounds`; ``more(*state)`` is the exit test. Returns (state,
-    rounds run: an int, or for ``DEVICE`` a 0-d int32 tensor)."""
+def _loop(step, state, rounds):
+    """Run ``state = step(*state)`` over (ids, rank, active) in one of the
+    loop forms of the module docstring: ``rounds=k`` exactly ``k`` times,
+    the cold and device forms while some pair is left to merge, reading
+    that test back after every round. Returns (state, rounds run: an int,
+    or for ``DEVICE`` a 0-d int32 tensor on the state's device)."""
     global MERGE_ROUNDS
-    if rounds == DEVICE:
-        return loop.while_loop(more, step, state, _read_flag)
+    device = rounds == DEVICE
+    fixed = rounds is not None and not device
     ran = 0
-    while (ran < rounds) if rounds is not None else _read_flag(more(*state)):
+    while ran < rounds if fixed else _read_flag(state[1].amin() < MAX_RANK):
         state = step(*state)
         ran += 1
+    if device:
+        return state, torch.tensor(ran, dtype=torch.int32, device=state[0].device)
     MERGE_ROUNDS += ran
     return state, ran
-
-
-def run_rounds(ids, rank, active, pair_rows_cat, table_mask, rounds=None,
-               more=None):
-    """Sequential merge rounds over a [W, R] state, in any loop form.
-
-    ``rounds=None`` (cold): a round runs while ``more(rank, active)`` holds
-    (by default: some column has a mergeable pair), one 0-d bool read back
-    per test. ``rounds=k``: exactly ``k`` rounds, nothing read back.
-    ``rounds=DEVICE``: while ``more`` holds, tested on the device
-    (:func:`.loop.while_loop`); ``more`` must not launch a prefix scan.
-
-    Returns (ids, rank, active, rounds run: an int, or for ``DEVICE`` a 0-d
-    int32 tensor).
-    """
-    test = more or _exit_test
-    (ids, rank, active), ran = _loop(
-        lambda ids, rank, active: t3_round(ids, rank, active, pair_rows_cat, table_mask),
-        lambda _ids, rank, active: test(rank, active),
-        (ids, rank, active), rounds,
-    )
-    return ids, rank, active, ran
 
 
 def merge_rows_t3_plain(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
@@ -233,8 +197,8 @@ def merge_rows_t3_plain(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
     :func:`merge_rows_t3`. Semantics identical to the reference merge loop
     (``M/GptBytePairEncoding.java:200-275``).
 
-    ``rounds``: see :func:`run_rounds`. Returns (ids_t int32[W, R],
-    active_t bool[W, R], rounds run).
+    ``rounds``: ``None``, ``k`` or ``DEVICE`` (the module docstring).
+    Returns (ids_t int32[W, R], active_t bool[W, R], rounds run).
     """
     W, R = mat_t.shape
     dev = mat_t.device
@@ -249,8 +213,9 @@ def merge_rows_t3_plain(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
     rank = torch.where(is_pair, take_clip(byte_pair_id, b * 256 + b_next), -1)
     rank = torch.where(rank < 0, MAX_RANK, rank)
 
-    ids, _rank, active, ran = run_rounds(
-        ids, rank, active, pair_rows_cat, table_mask, rounds
+    (ids, _rank, active), ran = _loop(
+        lambda ids, rank, active: t3_round(ids, rank, active, pair_rows_cat, table_mask),
+        (ids, rank, active), rounds,
     )
     return ids, active, ran
 
@@ -342,8 +307,8 @@ def merge_rows_t3(mat_t, lens, byte_to_id, byte_pair_id, pair_rows_cat,
     to the reference merge loop (``M/GptBytePairEncoding.java:200-275``).
 
     CUDA tensors go to the kernel (:func:`merge_rows_t3_cuda`), CPU tensors
-    to the plain version (:func:`merge_rows_t3_plain`). ``rounds``: see
-    :func:`run_rounds`. Returns (ids_t int32[W, R], active_t bool[W, R],
+    to the plain version (:func:`merge_rows_t3_plain`). ``rounds``: see the
+    module docstring. Returns (ids_t int32[W, R], active_t bool[W, R],
     rounds run: an int, or for ``DEVICE`` a 0-d int32 tensor).
     """
     dev = mat_t.device
@@ -406,25 +371,11 @@ def row_round(ids, rank, active, pair_rows_cat, table_mask):
     return new_ids, new_rank, new_active
 
 
-def merge_rows(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
-               table_mask, *, rounds=None):
-    """Exact merge of a row-major padded piece matrix (the long-piece
-    fallback's layout; semantics as :func:`merge_rows_t3`, one
-    :func:`row_round` a round).
-
-    The reference function probes the scalar cuckoo tables; this one probes
-    the same entries through ``pair_rows_cat`` (columns 0-2 hold the same
-    u, v, id).
-
-    Args:
-      byte_mat: uint8[R, L] piece bytes, zero-padded.
-      lens: int32[R] piece byte lengths (<= L).
-      rounds: the loop form (see :func:`run_rounds`).
-
-    Returns (ids int32[R, L], token id per surviving span, junk at inactive
-    lanes; active bool[R, L], the surviving spans; rounds run: an int, or
-    for ``DEVICE`` a 0-d int32 tensor).
-    """
+def merge_rows_plain(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+                     table_mask, *, rounds=None):
+    """Exact merge of a row-major padded piece matrix as rounds of
+    :func:`row_round`, on any device: the plain version of
+    :func:`merge_rows`, whose arguments and results it takes and gives."""
     R, L = byte_mat.shape
     dev = byte_mat.device
     lanes = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
@@ -441,7 +392,39 @@ def merge_rows(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
 
     (ids, _rank, active), ran = _loop(
         lambda ids, rank, active: row_round(ids, rank, active, pair_rows_cat, table_mask),
-        lambda _ids, rank, active: _exit_test(rank, active),
         (ids, rank, active), rounds,
     )
     return ids, active, ran
+
+
+def merge_rows(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+               table_mask, *, rounds=None):
+    """Exact merge of a row-major padded piece matrix (the long-piece
+    fallback's layout; semantics as :func:`merge_rows_t3`). CUDA tensors go
+    to the merge kernel over the transposed matrix
+    (:func:`merge_rows_t3_cuda`, ``L <= MAX_LANES``), CPU tensors to the
+    plain version (:func:`merge_rows_plain`).
+
+    The reference function probes the scalar cuckoo tables; this one probes
+    the same entries through ``pair_rows_cat`` (columns 0-2 hold the same
+    u, v, id).
+
+    Args:
+      byte_mat: uint8[R, L] piece bytes, zero-padded.
+      lens: int32[R] piece byte lengths (<= L).
+      rounds: the loop form (see the module docstring).
+
+    Returns (ids int32[R, L], token id per surviving span, junk at inactive
+    lanes; active bool[R, L], the surviving spans; rounds run: an int, or
+    for ``DEVICE`` a 0-d int32 tensor).
+    """
+    dev = byte_mat.device
+    if dev.type == "cuda":
+        ids_t, active_t, ran = merge_rows_t3_cuda(
+            byte_mat.T.contiguous(), lens, byte_to_id, byte_pair_id, pair_rows_cat,
+            table_mask, rounds=rounds)
+        return ids_t.T, active_t.T, ran
+    if dev.type != "cpu":
+        raise ValueError(f"no merge for device {dev}")
+    return merge_rows_plain(byte_mat, lens, byte_to_id, byte_pair_id, pair_rows_cat,
+                            table_mask, rounds=rounds)

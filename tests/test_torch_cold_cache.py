@@ -1,8 +1,9 @@
-"""The un-planned path's graph cache and its device loops, against the JAX
-package and the host oracle.
+"""The un-planned path's graph cache and the merges' device form, against the
+JAX package and the host oracle.
 
-On the CPU the device loop (``merge.DEVICE``, ``ops/loop.py``) is its plain
-version, the loop that reads its exit test back after every round, and a
+On the CPU the device form (``merge.DEVICE``; on the card one merge kernel
+launch that leaves its round counter unread) is the plain loop that reads
+its exit test back after every round and returns its count as a tensor, and a
 cached unit of ``DeviceEngine(cold_cache=True)`` runs its recorded body
 eagerly on its static inputs: the bookkeeping of the cache (keys, static
 inputs, copies of the outputs, round counters read with the last read) is
@@ -22,7 +23,7 @@ from jtokkit_tpu.ops import merge_exact as jax_exact
 from jtokkit_tpu.utils import corpus
 from jtokkit_tpu_torch import Encodings
 from jtokkit_tpu_torch.engine.device import DeviceEngine
-from jtokkit_tpu_torch.ops import loop, merge, merge_exact, pipeline, stage4
+from jtokkit_tpu_torch.ops import merge, pipeline, stage4
 from jtokkit_tpu_torch.parallel import mesh
 from jtokkit_tpu_torch.parallel.sharded import ShardedTokenizer
 
@@ -70,10 +71,10 @@ def _chunk_table(port, flavor, seed):
 def test_device_loop_buckets_match_jax(flavor):
     """Every bucket of a chunk: the device form (its plain version here) with
     ``count_b`` and ``group_start_b`` as 0-d tensors sliced from the piece
-    table equals the JAX merge (narrow: ``merge_bucket_v3``; 64 lanes and
-    more also the wide ``merge_bucket_exact``, phase by phase) and the port's
-    cold form with plain ints; the device counters equal the cold form's
-    rounds, per phase where wide."""
+    table equals the JAX merge (``merge_bucket_v3``; at 64 lanes and more
+    also the wide ``merge_bucket_exact``, piece by piece) and the port's cold
+    form with plain ints; the device counter equals the cold form's
+    rounds."""
     _orc, jax_eng, port = engines("cl100k_base")
     T = port.tables
     buf, tab, meta = _chunk_table(port, flavor, seed=3)
@@ -108,24 +109,20 @@ def test_device_loop_buckets_match_jax(flavor):
         if lanes < 64:
             continue
         wide_buckets += 1
-        wide_args = (T.byte_to_id, T.byte_pair_seed, T.pair_rows_cat, T.table_mask)
         cols_j, outs_j = jax_exact.merge_bucket_exact(
             jnp.asarray(buf.numpy()), jt["starts"], jt["lens"], jt["miss_sorted"],
             jt["group_start"][b], jnp.int32(cnt), jax_eng._byte_to_id,
             jax_eng._byte_pair_seed, jax_eng._pair_rows_cat, jax_eng.packed.table_mask,
             lanes=lanes, cap=cap,
         )
-        cols, outs, counters = merge_exact.merge_bucket_exact(
-            *args, *live, *wide_args, lanes=lanes, cap=cap, rounds=merge.DEVICE)
-        cols_c, outs_c, ran = merge_exact.merge_bucket_exact(
-            *args, int(tab.group_start[b]), cnt, *wide_args, lanes=lanes, cap=cap)
-        assert [int(c) for c in counters] == list(ran)
-        assert len(ran) == len(merge_exact.phase_chain(lanes)) == len(outs_j)
-        for got in (outs, outs_c):
-            for k, ((i, a), (ij, aj)) in enumerate(zip(got, outs_j)):
-                _eq(a, aj, f"wide {lanes} phase {k} active")
-                _eq(torch.where(a, i, -1), jnp.where(aj, ij, -1), f"wide {lanes} phase {k}")
         _eq(cols, cols_j)
+        got = {r: ids[act[:, r], r].tolist() for r in range(cnt)}
+        emitted = {}
+        for ids_j, act_j in outs_j:
+            ids_j, act_j = np.asarray(ids_j), np.asarray(act_j)
+            for r in np.flatnonzero(act_j[:, :cnt].any(axis=0)):
+                emitted[r] = ids_j[act_j[:, r], r].tolist()
+        assert emitted == got, f"wide {lanes}"
     assert buckets >= 2
     assert wide_buckets > 0 or flavor == "english"
 
@@ -162,29 +159,32 @@ def test_device_loop_merge_rows_matches_jax(shape):
 
 
 def test_device_loop_plain_version_reads_every_test():
-    """On the CPU the device form is the cold loop: one exit test read back
-    per round and a last one; the rounds come back as a 0-d int32 tensor and
-    are not added to ``MERGE_ROUNDS`` (whoever reads the counter adds
-    them); nothing is recorded and no body is kept."""
+    """On the CPU the device form is the cold loop, for Stage B's bucket and
+    for the fallback's rows: one exit test read back per round and a last
+    one; the rounds come back as a 0-d int32 tensor and are not added to
+    ``MERGE_ROUNDS`` (whoever reads the counter adds them)."""
     _orc, _jax, port = engines("cl100k_base")
     T = port.tables
     buf, tab, meta = _chunk_table(port, "english", seed=5)
     b = int(np.flatnonzero(meta[2:])[0])
     lanes = stage4.BUCKET_WIDTHS[b]
     cap = port._bucket_cap(buf.shape[0], lanes, int(meta[2 + b]))
-    tests, rounds, recorded = merge.EXIT_TESTS, merge.MERGE_ROUNDS, loop.RECORDED
+    tests, rounds = merge.EXIT_TESTS, merge.MERGE_ROUNDS
     _c, _i, _a, counter = pipeline.merge_bucket_v3(
         buf, tab.starts, tab.lens, tab.miss_sorted, tab.group_start[b],
         tab.bucket_counts[b], T.byte_to_id, T.byte_pair_id, T.pair_rows_cat,
         T.table_mask, lanes=lanes, cap=cap, rounds=merge.DEVICE)
+    assert counter.dtype == torch.int32 and counter.dim() == 0
     assert merge.EXIT_TESTS - tests == int(counter) + 1
-    assert merge.MERGE_ROUNDS == rounds and loop.RECORDED == recorded
-    assert loop.take_bodies() == []
-    with pytest.raises(ValueError):
-        merge_exact.merge_bucket_exact(
-            buf, tab.starts, tab.lens, tab.miss_sorted, 0, 1, T.byte_to_id,
-            T.byte_pair_seed, T.pair_rows_cat, T.table_mask, lanes=128, cap=512,
-            rounds=(1, 2))
+    assert merge.MERGE_ROUNDS == rounds
+    tests = merge.EXIT_TESTS
+    mat = torch.full((128, 16), ord("a"), dtype=torch.uint8)
+    lens = torch.full((128,), 16, dtype=torch.int32)
+    _i, _a, counter = merge.merge_rows(mat, lens, T.byte_to_id, T.byte_pair_id,
+                                       T.pair_rows_cat, T.table_mask, rounds=merge.DEVICE)
+    assert counter.dtype == torch.int32 and counter.dim() == 0 and int(counter) > 0
+    assert merge.EXIT_TESTS - tests == int(counter) + 1
+    assert merge.MERGE_ROUNDS == rounds
 
 
 def _cached_engine(**kw):
@@ -266,15 +266,15 @@ WIDE_DOCS = [
 @pytest.mark.parametrize("wide", [False, True])
 def test_plan_first_pass_fills_rounds_from_the_counters(wide):
     """A plan's first pass through the cache (count, then encode on another
-    plan) leaves per-bucket rounds, per phase where a bucket is wide, equal
-    to an eager engine's read-per-round pass; ``MERGE_ROUNDS`` gains them at
-    the pass's last read; the warmed passes after it agree with the
-    oracle."""
-    kw = {"wide_min_lanes": 64} if wide else {}
-    orc, eng = _cached_engine(**kw)
+    plan) leaves per-bucket rounds equal to an eager engine's read-per-round
+    pass; ``MERGE_ROUNDS`` gains them at the pass's last read; the warmed
+    passes after it agree with the oracle. ``wide`` adds the documents that
+    the JAX package routes to its wide-bucket merge (buckets of 64 lanes and
+    more)."""
+    orc, eng = _cached_engine()
     eager = DeviceEngine.from_oracle(eng.oracle, device="cpu", chunk_bytes=1 << 17,
-                                     native_long=False, cold_cache=False, **kw)
-    docs = WIDE_DOCS + [_flavor_texts("mixed", seed=6)[0][:6000]]
+                                     native_long=False, cold_cache=False)
+    docs = (WIDE_DOCS if wide else []) + [_flavor_texts("mixed", seed=6)[0][:6000]]
     want = [orc.encode_ordinary(t)[0] for t in docs]
     plans = {}
     for e in (eng, eager):
@@ -282,8 +282,7 @@ def test_plan_first_pass_fills_rounds_from_the_counters(wide):
         rounds = merge.MERGE_ROUNDS
         assert e.count_tokens_corpus(None, plan=p[0]) == sum(map(len, want))
         ran = [r for c in p[0].chunk_cache for r in c["rounds"]]
-        assert merge.MERGE_ROUNDS - rounds == sum(
-            sum(r) if isinstance(r, tuple) else r for r in ran) > 0
+        assert merge.MERGE_ROUNDS - rounds == sum(ran) > 0
         assert [a.tolist() for a in e.encode_ordinary_batch_arrays(None, plan=p[1])] == want
     cached, ref = plans[True], plans[False]
     for k in (0, 1):
@@ -292,7 +291,8 @@ def test_plan_first_pass_fills_rounds_from_the_counters(wide):
         assert [c["caps"] for c in cached[k].chunk_cache] == \
             [c["caps"] for c in ref[k].chunk_cache]
     if wide:
-        assert any(isinstance(r, tuple) for c in cached[0].chunk_cache for r in c["rounds"])
+        assert any(lanes >= 64 for c in cached[0].chunk_cache
+                   for _b, lanes, _cap, _n in c["caps"])
     for _ in range(2):
         assert eng.count_tokens_corpus(None, plan=cached[0]) == sum(map(len, want))
         assert [a.tolist() for a in eng.encode_ordinary_batch_arrays(None, plan=cached[1])] \
@@ -301,26 +301,17 @@ def test_plan_first_pass_fills_rounds_from_the_counters(wide):
 
 def test_read_settles_pending_rounds_once():
     """``_read(t, pending)`` returns ``t``'s values, fills each pending
-    entry's rounds from the counters fetched in the same read and empties
-    the list; one host read in all. Only a wide bucket's loops ran the step
-    kernel (one run a loop and one a round): a narrow bucket's counter is
-    the merge kernel's."""
+    entry's rounds (one counter a bucket) from the counters fetched in the
+    same read and empties the list; one host read in all."""
     _orc, eng = _cached_engine()
     entry = {"kind": "ok", "caps": [(0, 8, 512, 3), (1, 16, 512, 1)], "rounds": None}
     pending = [(entry, torch.tensor([4, 7], dtype=torch.int32))]
-    reads, rounds, steps = eng.host_reads, merge.MERGE_ROUNDS, loop.STEP_RUNS
+    reads, rounds = eng.host_reads, merge.MERGE_ROUNDS
     got = eng._read(torch.tensor([[5, 6], [7, 8]], dtype=torch.int64), pending)
     _eq(got, [[5, 6], [7, 8]])
     assert got.dtype == np.int64 and pending == []
     assert entry["rounds"] == [4, 7]
     assert eng.host_reads - reads == 1 and merge.MERGE_ROUNDS - rounds == 11
-    assert loop.STEP_RUNS == steps
-    _orc, wide = _cached_engine(wide_min_lanes=16)
-    entry = {"kind": "ok", "caps": [(0, 8, 512, 3), (1, 16, 512, 1)], "rounds": None}
-    pending = [(entry, torch.tensor([4, 7], dtype=torch.int32))]
-    wide._read(torch.zeros(1, dtype=torch.int64), pending)
-    assert entry["rounds"] == [4, (7,)]
-    assert merge.MERGE_ROUNDS - rounds == 22 and loop.STEP_RUNS - steps == 1 + 7
 
 
 def test_cache_drops_the_least_recently_used_unit():
@@ -336,15 +327,34 @@ def test_cache_drops_the_least_recently_used_unit():
     assert keys == [262144, 8192], keys  # the 8 KB chunk came back last
 
 
-def test_fallback_merge_from_the_cache():
-    """A chunk with a piece over 4096 bytes: the fallback's bucket merges come
-    from the cache (one unit per (rows, width)), and the ids equal the
-    oracle's and an eager engine's, with equal merge rounds."""
+def test_fallback_merge_from_the_cache(monkeypatch):
+    """A chunk with a piece over 4096 bytes on the engine with the cache on:
+    each of the fallback's buckets is one ``merge_rows`` call in the device
+    form (on the card one kernel launch), read back with its counter in ONE
+    read beside the plain loop's exit tests, and the cache keeps no unit
+    for it. The ids equal the oracle's and an eager engine's, with equal
+    merge rounds."""
     orc, eng = _cached_engine()
     eager = DeviceEngine.from_oracle(eng.oracle, device="cpu", chunk_bytes=1 << 17,
                                      native_long=False, cold_cache=False)
     docs = ["a" * 5000 + " end", "intro " + "中文字" * 12 + " words and more words"]
     want = [orc.encode_ordinary(t)[0] for t in docs]
+    calls, buckets = [], []
+    real_rows, real_flat = merge.merge_rows, eng._merge_flat
+
+    def merge_rows(mat, *args, **kw):
+        calls.append((tuple(mat.shape), kw.get("rounds")))
+        return real_rows(mat, *args, **kw)
+
+    def merge_flat(mat, blens, n):
+        made, reads, tests = len(calls), eng.host_reads, merge.EXIT_TESTS
+        out = real_flat(mat, blens, n)
+        buckets.append((mat.shape, len(calls) - made,
+                        eng.host_reads - reads - (merge.EXIT_TESTS - tests)))
+        return out
+
+    monkeypatch.setattr(merge, "merge_rows", merge_rows)
+    monkeypatch.setattr(eng, "_merge_flat", merge_flat)
     got = []
     for e in (eng, eager):
         rounds = merge.MERGE_ROUNDS
@@ -352,8 +362,11 @@ def test_fallback_merge_from_the_cache():
         got.append(merge.MERGE_ROUNDS - rounds)
     assert got[0] == got[1] > 0
     assert eng.fallback_chunks == 1 and eng.host_pieces == 1
-    assert {k[1] for k in eng._cold["flat"]} >= {16}
-    assert all(k[0] >= 128 for k in eng._cold["flat"])
+    assert [b[1:] for b in buckets] == [(1, 1)] * len(buckets)
+    assert {shape[1] for shape, _c, _r in buckets} >= {16}
+    assert all(shape[0] >= 128 for shape, _c, _r in buckets)
+    assert calls[: len(buckets)] == [(shape, merge.DEVICE) for shape, _c, _r in buckets]
+    assert set(eng._cold) == {"stage_a", "stages_b_c"}
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,7 @@ import torch
 
 from jtokkit_tpu_torch import Encodings, EncodingType
 from jtokkit_tpu_torch.engine.device import DeviceEngine
-from jtokkit_tpu_torch.ops import loop, merge, scan
+from jtokkit_tpu_torch.ops import merge, scan
 from jtokkit_tpu_torch.utils import corpus
 
 _STATE = {}
@@ -98,8 +98,7 @@ def test_second_call_replays_with_three_reads():
 @pytest.mark.gpu
 def test_a_failed_capture_raises():
     """A unit whose recording reads the card back cannot be captured: the
-    call raises, nothing falls back. A device loop outside a capture
-    raises too."""
+    call raises, nothing falls back."""
     orc, _cached, _eager = _engines()
     eng = DeviceEngine.from_oracle(orc, native_long=False)
     real = eng._stage_a
@@ -113,10 +112,6 @@ def test_a_failed_capture_raises():
     eng._stage_a = syncing
     with pytest.raises(RuntimeError):
         eng.encode_ordinary_batch(["a capture that fails " * 50])
-    x = torch.zeros(4, dtype=torch.int32, device="cuda")
-    loop.prepare(x.device)
-    with pytest.raises(RuntimeError, match="not capturing"):
-        loop.while_loop(lambda x: x.amax() > 0, lambda x: (x - 1,), (x,), bool)
 
 
 @pytest.mark.gpu

@@ -155,50 +155,50 @@ def test_host_chunks_keep_their_paths(kind):
     assert plan.encode_graphs is None
 
 
-# ---- an engine with wide routing (buckets of 64 lanes and more through
-# ops/merge_exact): the same body, graphs on the card, none here
+# ---- the buckets the JAX package routes to its wide-bucket merge (64 lanes
+# and more): the port's default engine runs them through the one merge, the
+# same body, graphs on the card, none here
+
+WIDE_MIN = 64
+
 
 def wide_engines(monkeypatch):
-    """(port engine, JAX engine), both with ``wide_min_lanes`` 64 and long
-    pieces on the device merge; the JAX engine reads the crossover from
-    ``JTOKKIT_TPU_WIDE_MIN`` when it is built."""
+    """(port engine, JAX engine): the port's default engine with long pieces
+    on the device merge, and the JAX engine with its wide merge on from
+    ``WIDE_MIN`` lanes (read from ``JTOKKIT_TPU_WIDE_MIN`` when it is
+    built)."""
     monkeypatch.setenv("JTOKKIT_TPU_NATIVE_LONG", "0")
-    monkeypatch.setenv("JTOKKIT_TPU_WIDE_MIN", "64")
+    monkeypatch.setenv("JTOKKIT_TPU_WIDE_MIN", str(WIDE_MIN))
     if "wide" not in _JAX:
-        orc, _jax, port = engines("cl100k_base")
-        _JAX["wide"] = (
-            DeviceEngine.from_oracle(port.oracle, device="cpu", chunk_bytes=1 << 17,
-                                     wide_min_lanes=64, native_long=False),
-            JaxEngine.from_oracle(orc),
-        )
-    assert _JAX["wide"][1]._wide_min_lanes == 64
-    return _JAX["wide"]
+        _JAX["wide"] = JaxEngine.from_oracle(engines("cl100k_base")[0])
+    assert _JAX["wide"]._wide_min_lanes == WIDE_MIN
+    return engines("cl100k_base")[2], _JAX["wide"]
 
 
-def wide_buckets(port, plan):
-    """The wide buckets' per-phase round counts over the plan's chunks."""
+def wide_buckets(plan):
+    """The round counts of the buckets of ``WIDE_MIN`` lanes and more over
+    the plan's chunks."""
     return [r for c in plan.chunk_cache if c["kind"] == "ok"
             for (_b, lanes, _cap, _n), r in zip(c["caps"], c["rounds"])
-            if lanes >= port.wide_min_lanes]
+            if lanes >= WIDE_MIN]
 
 
 @pytest.mark.parametrize("flavor", ["mixed", "cjk"])
 def test_wide_body_matches_staged_and_jax(flavor, monkeypatch):
-    """The wide engine's body (the hybrid merge at its cached per-phase
-    rounds), chunk by chunk, against its staged dispatch and the JAX
-    engine's cached dispatch with its wide merge on."""
+    """Over documents with wide buckets, the body (every bucket's merge at
+    its cached rounds), chunk by chunk, against its staged dispatch and the
+    JAX engine's cached dispatch with its wide merge on."""
     port, jax_eng = wide_engines(monkeypatch)
     plan = body_against_staged_and_jax(engines("cl100k_base")[0], port, jax_eng,
                                        flavor_docs(flavor))
-    rounds = wide_buckets(port, plan)
-    assert rounds and all(isinstance(r, tuple) for r in rounds)
+    rounds = wide_buckets(plan)
+    assert rounds and all(isinstance(r, int) for r in rounds)
 
 
 def test_wide_count_equals_encode_total(monkeypatch):
-    """Over a warmed plan of cjk and english chunks the count makes each
-    chunk with a wide bucket a block of its own at its own capacities and
-    per-phase rounds, reads once a pass, and equals the encode's total pass
-    after pass."""
+    """Over a warmed plan of cjk and english chunks the count groups the
+    chunks with wide buckets by shape like any other, reads once a pass,
+    and equals the encode's total pass after pass."""
     port, _jax = wide_engines(monkeypatch)
     orc = engines("cl100k_base")[0]
     docs = flavor_docs("cjk") + flavor_docs("english")
@@ -213,20 +213,17 @@ def test_wide_count_equals_encode_total(monkeypatch):
         arrays = port.encode_ordinary_batch_arrays(None, plan=plan)
         assert [a.tolist() for a in arrays] == want, f"pass {k}"
     assert all(c["kind"] == "ok" for c in plan.chunk_cache) and len(plan) >= 2
-    wide = [c for c in plan.chunk_cache if any(
-        lanes >= 64 for _b, lanes, _cap, _n in c["caps"])]
-    assert wide and wide_buckets(port, plan)
-    alone = [b for b in plan.mapped_count if isinstance(b.sig[-1][3], tuple)]
-    assert [(b.n_live, len(b.bufs)) for b in alone] == [(1, 1)] * len(wide)
-    for blk, c in zip(alone, wide):
-        assert [s[:3] for s in blk.sig] == [cap[:3] for cap in c["caps"]]
-        assert [s[3] for s in blk.sig] == list(c["rounds"])
+    assert wide_buckets(plan)
+    by_shape = {(c["variant"], c["divs"], len(e[0]), e[1].shape[0])
+                for e, c in zip(plan, plan.chunk_cache)}
+    assert len(plan.mapped_count) >= len(by_shape)
     assert sum(b.n_live for b in plan.mapped_count) == len(plan)
 
 
 def test_wide_cpu_plan_has_no_graphs(monkeypatch):
-    """A wide plan on the CPU counts and encodes eagerly: no graph is made
-    or replayed, and the scan wrapper is never asked for its kernel."""
+    """A plan with wide buckets on the CPU counts and encodes eagerly: no
+    graph is made or replayed, and the scan wrapper is never asked for its
+    kernel."""
     port, _jax = wide_engines(monkeypatch)
     orc = engines("cl100k_base")[0]
     docs = flavor_docs("cjk")
@@ -237,7 +234,7 @@ def test_wide_cpu_plan_has_no_graphs(monkeypatch):
         assert [a.tolist() for a in port.encode_ordinary_batch_arrays(
             docs if k == 0 else None, plan=plan)] == want
         assert port.count_tokens_corpus(None, plan=plan) == sum(len(w) for w in want)
-    assert wide_buckets(port, plan)
+    assert wide_buckets(plan)
     assert plan.encode_graphs is None and plan.encode_pool_bytes == 0
     assert all(b.graph is None for b in plan.mapped_count) and plan.graph_pool_bytes == 0
     assert port.graph_replays == replays and scan.KERNEL_LAUNCHES == launches

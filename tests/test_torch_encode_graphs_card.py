@@ -67,16 +67,17 @@ def test_encode_replays_equal_the_eager_dispatch():
 
 @pytest.mark.gpu
 def test_wide_replays_equal_the_eager_dispatch():
-    """An engine with ``wide_min_lanes=64`` (the hybrid merge for buckets of
-    64 lanes and more) over 0.2 MB of cjk and 0.3 MB of mixed text: its
-    warmed count replays one graph per block (each chunk with a wide bucket
-    a block of its own) and its warmed encode one graph per chunk; each
-    replayed pass reads once, launches no scan and runs no merge round by
-    the wrapper, and its ids equal the eager dispatch's, chunk by chunk."""
+    """An engine with long pieces on the device merge over 0.2 MB of cjk and
+    0.3 MB of mixed text, whose buckets of 64 lanes and more the JAX package
+    gives its wide-bucket merge and the port its one merge kernel: its
+    warmed count replays one graph per block and its warmed encode one
+    graph per chunk; each replayed pass reads once, launches no scan and
+    runs no merge round by the wrapper, and its ids equal the eager
+    dispatch's, chunk by chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs an H100")
     enc = Encodings.new_default_encoding_registry().get_encoding(EncodingType.CL100K_BASE)
-    engine = DeviceEngine.from_oracle(enc.oracle, wide_min_lanes=64, native_long=False)
+    engine = DeviceEngine.from_oracle(enc.oracle, native_long=False)
     docs = (corpus.generate(0.2, seed=33, flavor="cjk")
             + corpus.generate(0.3, seed=34, flavor="mixed"))
     plan = engine.preload_corpus(docs)

@@ -146,11 +146,17 @@ def test_merge_rows_matches_jax(name, shape):
         assert ids_t[r][act_t[r]].tolist() == want, r
 
 
-def test_merge_rows_agrees_with_the_column_major_merge():
+@pytest.mark.parametrize("width", [16, 64, 512, 4096])
+@pytest.mark.parametrize("name", ["cl100k_base", "r50k_base"])
+def test_merge_rows_agrees_with_the_column_major_merge(name, width):
     """Stage B's [W, R] merge and the fallback's [R, L] merge are the same
-    function of the pieces."""
-    _jax, port = engines("cl100k_base")
-    mat, lens = _piece_matrix(128, 32, seed=1)
+    function of the pieces at the fallback's widths, so the fallback can run
+    on Stage B's merge kernel over the transposed matrix. Past 64 lanes the
+    pieces stay within 32 bytes: the plain loops run one round a merge over
+    the whole matrix."""
+    _jax, port = engines(name)
+    mat, lens = _piece_matrix(128, min(width, 32 if width > 64 else width), seed=width)
+    mat = np.pad(mat, ((0, 0), (0, width - mat.shape[1])))
     t = port.tables
     args = (t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask)
     ids_r, act_r, _ran = merge.merge_rows(

@@ -1,12 +1,13 @@
-"""The port's wide-bucket hybrid merge (ops/merge_exact, ops/colscan) against
-the JAX package's functions and the host oracle, exactly.
+"""The port's one merge (``pipeline.merge_bucket_v3``) on the buckets that
+the JAX package gives its wide-bucket hybrid, against that hybrid and the
+host oracle, exactly.
 
-Array for array on seeded inputs: ``col_scan`` / ``excl_fwd`` / ``excl_rev``,
-``rank_from_state``, ``round1_bytes``, ``_compact`` and ``merge_bucket_exact``
-(ids where active, phase by phase). Token for token against the oracle's
-sequential merge: the cases of ``tests/test_merge_exact.py``, in the cold
-loop form and again with the round counts the cold form reported. End to
-end: an engine with ``wide_min_lanes=64`` over cold and warmed passes.
+Token for token against the oracle's sequential merge: the cases of
+``tests/test_merge_exact.py``, in the cold loop form and again with the round
+count the cold form reported. Piece for piece against the JAX package's
+``merge_bucket_exact`` (its batched round and compacting phases). End to end:
+a default engine over the documents that the JAX engine routes to its wide
+merge, cold and warmed passes, against that JAX engine.
 """
 
 import random
@@ -18,12 +19,9 @@ import torch
 
 from jtokkit_tpu.engine import presplit
 from jtokkit_tpu.engine.oracle import byte_pair_merge
-from jtokkit_tpu.ops import colscan as jax_colscan
-from jtokkit_tpu.ops import merge as jax_merge
 from jtokkit_tpu.ops import merge_exact as jax_exact
 from jtokkit_tpu.vocab.definitions import BUILTIN_DEFINITIONS
-from jtokkit_tpu_torch.engine.device import DeviceEngine
-from jtokkit_tpu_torch.ops import colscan, merge, merge_exact
+from jtokkit_tpu_torch.ops import merge, pipeline
 
 from .conftest import load_conformance_rows
 from .test_merge_exact import CASES
@@ -40,10 +38,6 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _eq(got, want, msg=""):
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=msg)
-
-
 def _bucket_inputs(pieces):
     """One bucket holding ``pieces``, as ``tests/test_merge_exact.py`` lays
     it out: (cap, buf, starts, lens, miss_sorted) as numpy arrays."""
@@ -57,44 +51,37 @@ def _bucket_inputs(pieces):
 
 
 def run_bucket(enc_name, pieces, lanes, rounds=None):
-    """Merge ``pieces`` (all <= lanes bytes) through the port's
-    merge_bucket_exact. Returns (tokens per piece, rounds per phase)."""
+    """Merge ``pieces`` (all <= lanes bytes) as one Stage B bucket through
+    the port's ``merge_bucket_v3``. Returns (tokens per piece, rounds)."""
     port = engines(enc_name)[2]
     t = port.tables
     cap, buf, starts, lens, miss_sorted = _bucket_inputs(pieces)
-    cols, outs, ran = merge_exact.merge_bucket_exact(
+    cols, ids, active, ran = pipeline.merge_bucket_v3(
         _t(buf), _t(starts), _t(lens), _t(miss_sorted), torch.tensor(0, dtype=torch.int32),
-        len(pieces), t.byte_to_id, t.byte_pair_seed, t.pair_rows_cat, t.table_mask,
+        len(pieces), t.byte_to_id, t.byte_pair_id, t.pair_rows_cat, t.table_mask,
         lanes=lanes, cap=cap, rounds=rounds,
     )
-    assert len(outs) == len(ran) == len(merge_exact.phase_chain(lanes))
-    cols = cols.numpy()
+    assert not active[:, len(pieces):].any(), "a dead column is active"
+    cols, ids, active = cols.numpy(), ids.numpy(), active.numpy()
     results = [[] for _ in pieces]
-    seen = np.zeros(len(pieces), dtype=bool)
-    for ids_k, act_k in outs:
-        ids_k, act_k = ids_k.numpy(), act_k.numpy()
-        assert not act_k[:, len(pieces):].any(), "a dead column emitted"
-        for r in np.flatnonzero(act_k.any(axis=0)):
-            p = cols[r]
-            assert not seen[p], f"piece {p} emitted twice"
-            seen[p] = True
-            results[p] = ids_k[act_k[:, r], r].tolist()
+    for r in range(len(pieces)):
+        results[cols[r]] = ids[active[:, r], r].tolist()
     return results, ran
 
 
 def check(enc_name, pieces, lanes):
-    """Cold form, then the fixed-count form with the cold form's counts:
+    """Cold form, then the fixed-count form with the cold form's count:
     both equal the oracle's sequential merge, and read nothing the second
-    time (the round counter advances by exactly the cached counts)."""
+    time (the round counter advances by exactly the cached count)."""
     ranks = engines(enc_name)[0].ranks
     want = [byte_pair_merge(p, ranks) for p in pieces]
     got, ran = run_bucket(enc_name, pieces, lanes)
     for p, g, w in zip(pieces, got, want):
         assert g == w, f"{p!r}: {g[:12]} != {w[:12]}"
-    before = merge.MERGE_ROUNDS
+    before, tests = merge.MERGE_ROUNDS, merge.EXIT_TESTS
     again, ran2 = run_bucket(enc_name, pieces, lanes, rounds=ran)
     assert again == want and ran2 == ran
-    assert merge.MERGE_ROUNDS - before == sum(ran)
+    assert merge.MERGE_ROUNDS - before == ran and merge.EXIT_TESTS == tests
 
 
 def _conformance_pieces(enc_name):
@@ -117,9 +104,12 @@ def _cjk_pieces(seed=7, n=40):
     ]
 
 
+@pytest.mark.parametrize("lanes", [32, 512, 4096])
 @pytest.mark.parametrize("enc_name", ["cl100k_base", "r50k_base"])
-def test_merge_exact_cases(enc_name):
-    check(enc_name, [p for p in CASES if len(p) <= 32], 32)
+def test_merge_exact_cases(enc_name, lanes):
+    """Short pieces in buckets up to the widest: the merge does not depend on
+    the rows past a piece's end."""
+    check(enc_name, [p for p in CASES if len(p) <= lanes], lanes)
 
 
 @pytest.mark.parametrize("enc_name", ["cl100k_base", "p50k_base"])
@@ -162,94 +152,14 @@ def test_merge_exact_repeat_runs(enc_name):
     check(enc_name, pieces, 128)
 
 
-def test_fewer_rounds_than_the_cold_pass_lose_spans():
-    """Why cached round counts are used as they are: a phase cut short
-    leaves columns wider than the next width, and compaction drops spans."""
-    pieces = _cjk_pieces(seed=9, n=20)
-    lanes = 1 << (max(len(p) for p in pieces) - 1).bit_length()
-    want, ran = run_bucket("cl100k_base", pieces, lanes)
-    assert ran[0] > 0
-    short, _ = run_bucket("cl100k_base", pieces, lanes, rounds=(0,) + ran[1:])
-    assert short != want
-
-
-# ---- array for array against the JAX functions ---------------------------
-
-
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("kind", ["last", "max", "add"])
-def test_col_scan_matches_jax(kind, reverse):
-    rng = np.random.default_rng(5)
-    W, R = 96, 67
-    if kind == "add":
-        x = rng.integers(0, 3, (W, R)).astype(np.int32)
-    else:
-        x = np.where(rng.random((W, R)) < 0.2, rng.integers(0, 1000, (W, R)), -1).astype(np.int32)
-    x[:, 0] = -1 if kind != "add" else 0  # a column with nothing set
-    (want,) = jax_colscan.col_scan([jnp.asarray(x)], [kind], reverse=reverse)
-    (got,) = colscan.col_scan([_t(x)], [kind], reverse=reverse)
-    assert got.dtype == torch.int32
-    _eq(got, want)
-    excl_j = jax_colscan.excl_rev if reverse else jax_colscan.excl_fwd
-    excl_t = colscan.excl_rev if reverse else colscan.excl_fwd
-    (want,) = excl_j([jnp.asarray(x)], [kind])
-    (got,) = excl_t([_t(x)], [kind])
-    _eq(got, want)
-
-
-def _byte_matrix(enc_name, seed, W=64):
-    """A bucket matrix of CJK, repeated-byte and random-byte pieces."""
-    rng = random.Random(seed)
-    pieces = _cjk_pieces(seed, 30) + [CASES[k] for k in (2, 3, 4, 5, 16, 17)]
-    pieces += [bytes(rng.randrange(256) for _ in range(rng.randint(2, W))) for _ in range(40)]
-    pieces = [p[:W] for p in pieces]
-    R = 128
-    mat = np.zeros((W, R), np.uint8)
-    lens = np.zeros(R, np.int32)
-    for r, p in enumerate(pieces):
-        mat[: len(p), r] = np.frombuffer(p, np.uint8)
-        lens[r] = len(p)
-    return mat, lens
-
-
-@pytest.mark.parametrize("enc_name", ["cl100k_base", "r50k_base"])
-def test_round1_rank_and_compact_match_jax(enc_name):
-    """round1_bytes, then rank_from_state on its state, then _compact."""
-    _orc, jax_eng, port = engines(enc_name)
-    t = port.tables
-    mat, lens = _byte_matrix(enc_name, 11)
-    want = jax_exact.round1_bytes(
-        jnp.asarray(mat), jnp.asarray(lens), jax_eng._byte_to_id, jax_eng._byte_pair_seed
-    )
-    got = merge_exact.round1_bytes(_t(mat), _t(lens), t.byte_to_id, t.byte_pair_seed)
-    ids, active, progress, counts = got
-    _eq(active, want[1], "active")
-    _eq(torch.where(active, ids, -1), jnp.where(want[1], want[0], -1), "ids")
-    assert bool(progress) == bool(want[2]) is True
-    _eq(counts, want[3], "counts")
-    assert int(counts.max()) < mat.shape[0], "round 1 merged nothing"
-
-    rank_j = jax_merge.rank_from_state(
-        want[0], want[1], jax_eng._pair_rows_cat, jax_eng.packed.table_mask
-    )
-    rank = merge.rank_from_state(ids, active, t.pair_rows_cat, t.table_mask)
-    _eq(rank, rank_j, "rank")
-    assert int((rank < merge.MAX_RANK).sum()) > 0
-
-    w_new = 1 << int(counts.max() - 1).bit_length()
-    c_j = jax_exact._compact(want[0], rank_j, want[1], w_new)
-    c_t = merge_exact._compact(ids, rank, active, w_new)
-    _eq(c_t[2], c_j[2], "compact active")
-    _eq(torch.where(c_t[2], c_t[0], -1), jnp.where(c_j[2], c_j[0], -1), "compact ids")
-    _eq(c_t[1], c_j[1], "compact rank")
-    _eq(c_t[2].sum(0), counts, "compaction dropped a span")
+# ---- piece for piece against the JAX package's hybrid ----------------
 
 
 @pytest.mark.parametrize("enc_name,lanes", [("cl100k_base", 128), ("p50k_base", 64)])
 def test_merge_bucket_exact_matches_jax(enc_name, lanes):
-    """Every phase's output: the same columns active, the same ids there."""
-    _orc, jax_eng, port = engines(enc_name)
-    t = port.tables
+    """Every piece's tokens equal those of the JAX hybrid, which emits each
+    piece in exactly one of its phases."""
+    _orc, jax_eng, _port = engines(enc_name)
     pieces = [p for p in _cjk_pieces(13, 60) + list(CASES) if len(p) <= lanes]
     cap, buf, starts, lens, miss_sorted = _bucket_inputs(pieces)
     cols_j, outs_j = jax_exact.merge_bucket_exact(
@@ -258,22 +168,19 @@ def test_merge_bucket_exact_matches_jax(enc_name, lanes):
         jax_eng._byte_to_id, jax_eng._byte_pair_seed, jax_eng._pair_rows_cat,
         jax_eng.packed.table_mask, lanes=lanes, cap=cap,
     )
-    cols, outs, ran = merge_exact.merge_bucket_exact(
-        _t(buf), _t(starts), _t(lens), _t(miss_sorted), 0, len(pieces),
-        t.byte_to_id, t.byte_pair_seed, t.pair_rows_cat, t.table_mask,
-        lanes=lanes, cap=cap,
-    )
-    _eq(cols, cols_j)
-    assert len(outs) == len(outs_j) == len(ran)
-    emitted = 0
-    for k, ((ids, act), (ids_j, act_j)) in enumerate(zip(outs, outs_j)):
-        _eq(act, act_j, f"phase {k} active")
-        _eq(torch.where(act, ids, -1), jnp.where(act_j, ids_j, -1), f"phase {k} ids")
-        emitted += int(act.any(dim=0).sum())
-    assert emitted == len(pieces)
+    cols_j = np.asarray(cols_j)
+    want = [None] * len(pieces)
+    for ids_j, act_j in outs_j:
+        ids_j, act_j = np.asarray(ids_j), np.asarray(act_j)
+        for r in np.flatnonzero(act_j[:, : len(pieces)].any(axis=0)):
+            assert want[cols_j[r]] is None, f"piece {cols_j[r]} emitted twice"
+            want[cols_j[r]] = ids_j[act_j[:, r], r].tolist()
+    assert len(outs_j) > 1 and None not in want
+    got, ran = run_bucket(enc_name, pieces, lanes)
+    assert got == want and ran > 0
 
 
-# ---- the engine with wide routing -----------------------------------------
+# ---- the engine over the documents the JAX engine routes wide -------------
 
 WIDE_DOCS = [
     "今日はよい天気です" "東京都港区" * 12,          # long CJK letter run
@@ -284,44 +191,30 @@ WIDE_DOCS = [
 
 
 def test_engine_wide_routing_parity(monkeypatch):
-    """An engine with ``wide_min_lanes=64`` reproduces the oracle, the narrow
-    port engine and the JAX engine with its wide merge on, over cold and
-    warmed count and encode passes; in the mapped count each chunk with a
-    wide bucket is a block of its own at its own per-phase rounds."""
-    orc, _jax, narrow = engines("cl100k_base")
-    wide = DeviceEngine.from_oracle(
-        narrow.oracle, device="cpu", chunk_bytes=1 << 17, wide_min_lanes=64,
-        native_long=False,
-    )
-    assert narrow.wide_min_lanes == 1 << 30 and wide.wide_min_lanes == 64
+    """A default engine (every bucket on the one merge) over documents with
+    buckets of 64 lanes and more reproduces the oracle over cold and warmed
+    count and encode passes, and the JAX engine with its wide merge on; its
+    mapped count groups those chunks by shape like any other."""
+    orc, _jax, port = engines("cl100k_base")
     docs = WIDE_DOCS + [" ".join(_p.decode() for _p in _cjk_pieces(21, 8))]
     want = [orc.encode_ordinary(t)[0] for t in docs]
-    assert wide.encode_ordinary_batch(docs) == want
-    assert narrow.encode_ordinary_batch(WIDE_DOCS) == want[: len(WIDE_DOCS)]
-    assert wide.count_tokens_batch(docs) == [len(w) for w in want]
+    assert port.encode_ordinary_batch(docs) == want
+    assert port.count_tokens_batch(docs) == [len(w) for w in want]
 
-    plan = wide.preload_corpus(docs)
+    plan = port.preload_corpus(docs)
     total = sum(len(w) for w in want)
-    assert wide.count_tokens_corpus(docs, plan=plan) == total
-    wide_rounds = [
-        r for c in plan.chunk_cache
-        for (_b, lanes, _cap, _cnt), r in zip(c["caps"], c["rounds"]) if lanes >= 64
-    ]
-    assert wide_rounds and all(isinstance(r, tuple) for r in wide_rounds)
-    reads = wide.host_reads
+    assert port.count_tokens_corpus(docs, plan=plan) == total
+    assert any(lanes >= 64 for c in plan.chunk_cache for _b, lanes, _c, _n in c["caps"])
+    assert all(isinstance(r, int) for c in plan.chunk_cache for r in c["rounds"])
+    reads = port.host_reads
     for _ in range(2):
-        assert wide.count_tokens_corpus(None, plan=plan) == total
-    blocks = plan.mapped_count
-    assert [(b.n_live, len(b.bufs)) for b in blocks] == [(1, 1)] * len(plan)
-    assert [b.sig for b in blocks] == [
-        tuple((b, lanes, cap, r) for (b, lanes, cap, _n), r in zip(c["caps"], c["rounds"]))
-        for c in plan.chunk_cache
-    ]
-    assert wide.host_reads - reads == 2
+        assert port.count_tokens_corpus(None, plan=plan) == total
+    assert sum(b.n_live for b in plan.mapped_count) == len(plan)
+    assert port.host_reads - reads == 2
     for k in range(3):
-        got = wide.encode_ordinary_batch_arrays(None, plan=plan)
+        got = port.encode_ordinary_batch_arrays(None, plan=plan)
         assert [g.tolist() for g in got] == want, f"pass {k}"
-    assert wide.host_reads - reads == 2 + 2 + 1 + 1
+    assert port.host_reads - reads == 2 + 2 + 1 + 1
 
     monkeypatch.setenv("JTOKKIT_TPU_WIDE_MIN", "64")
     from jtokkit_tpu.engine.device import DeviceEngine as JaxEngine
@@ -331,13 +224,13 @@ def test_engine_wide_routing_parity(monkeypatch):
     # the JAX engine compiles every (lanes, capacity) it meets, so it gets
     # the documents its own wide-routing test uses
     jax_plan = jax_wide.preload_corpus(WIDE_DOCS)
-    plan = wide.preload_corpus(WIDE_DOCS)
+    plan = port.preload_corpus(WIDE_DOCS)
     total = sum(len(w) for w in want[: len(WIDE_DOCS)])
     assert jax_wide.count_tokens_corpus(WIDE_DOCS, plan=jax_plan) == total
-    assert wide.count_tokens_corpus(WIDE_DOCS, plan=plan) == total
+    assert port.count_tokens_corpus(WIDE_DOCS, plan=plan) == total
     got = jax_wide.encode_ordinary_batch_arrays(None, plan=jax_plan)
     assert [g.tolist() for g in got] == want[: len(WIDE_DOCS)]
-    got = wide.encode_ordinary_batch_arrays(None, plan=plan)
+    got = port.encode_ordinary_batch_arrays(None, plan=plan)
     assert [g.tolist() for g in got] == want[: len(WIDE_DOCS)]
     assert [c["caps"] for c in plan.chunk_cache] == [
         [tuple(int(x) for x in cap) for cap in c["caps"]] for c in jax_plan.chunk_cache

@@ -208,7 +208,7 @@ def test_cold_capture_seconds_is_the_capture_span(enc, monkeypatch):
     replay stood in for."""
     engine = DeviceEngine.from_oracle(enc.oracle, device="cpu", chunk_bytes=1 << 17)
     key = ("test", 4)
-    engine._cold["flat"][key] = unit = ColdUnit(key, [torch.zeros(4)])
+    engine._cold["stage_a"][key] = unit = ColdUnit(key, [torch.zeros(4)])
 
     def fake_capture(warm, units, record, shared_pool=True):
         warm()
@@ -223,7 +223,7 @@ def test_cold_capture_seconds_is_the_capture_span(enc, monkeypatch):
     monkeypatch.setattr(engine, "_replay", lambda u: u.out)
 
     def run():
-        return engine._cold_run("flat", key, [torch.ones(4)],
+        return engine._cold_run("stage_a", key, [torch.ones(4)],
                                 lambda u: (u.inputs[0] * 2,), lambda u: None)
 
     out = run()
