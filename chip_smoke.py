@@ -2013,7 +2013,7 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from jtokkit_tpu_torch import native
+    from jtokkit_tpu_torch import native, pack
     from jtokkit_tpu_torch.ops import gather, merge, scan
 
     def timed_build(fn):
@@ -2023,11 +2023,12 @@ def main() -> int:
 
     t = time.time()
     libraries = [scan.LIBRARY, gather.LIBRARY, merge.LIBRARY]
-    builds = [(lib.name, lib.build) for lib in libraries] + [("native", native.build)]
+    builds = [(lib.name, lib.build) for lib in libraries] + [
+        ("native", native.build), ("pack", pack.build)]
     with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each, together
         futures = [(name, pool.submit(timed_build, fn)) for name, fn in builds]
         build_s = {name: f.result() for name, f in futures}
-    log(f"build: {len(libraries)} kernels and the native engine in "
+    log(f"build: {len(libraries)} kernels, the native engine and the chunk packer in "
         f"{time.time() - t:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
     for lib in libraries:
         log(f"  {lib.name}: {lib.path()}")
@@ -2036,6 +2037,9 @@ def main() -> int:
                 log("    " + line.strip())
     log(f"  native: {native.library_path()}")
     for line in native.BUILD_LOG.splitlines():
+        log("    " + line.strip())
+    log(f"  pack: {pack.library_path()}")
+    for line in pack.BUILD_LOG.splitlines():
         log("    " + line.strip())
 
     rows, max_err = phase_kernel(scan)

@@ -8,8 +8,10 @@ wide-bucket hybrid merge has no counterpart here: every bucket merges on
 the merge kernel). Per batch (documents -> token ids):
 
 1. Documents are packed into flat byte chunks (``chunk_bytes``, 1 MiB by
-   default) with one separator byte between documents; validity is derived
-   on the device from the doc-end table.
+   default) with one separator byte between documents, by the native chunk
+   packer (``pack.py``, ``csrc/pack.cc``: each document's UTF-8 written from
+   its ``str`` storage); validity is derived on the device from the
+   doc-end table.
 2. Stage A (``ops/stage4.stage_a_v4``) per chunk: classify, piece
    boundaries, piece table, word-table direct hits, miss list grouped by
    length bucket. Without a plan, steps 1 and 2 are streamed: each chunk
@@ -104,6 +106,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import pack
 from ..ops import (
     _build, boundaries, classify, decode as decode_ops, merge, pipeline, scan,
     stage4,
@@ -119,9 +122,15 @@ CHUNK_BYTES = 1 << 20
 # its least row count
 _BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 _MIN_ROWS = 128
+# a chunk's lengths: its bytes by ``flat_sizes(chunk_bytes)``, its document
+# ends by these, each the first that holds it, else the next power of two
+# (csrc/pack.cc)
 _DOC_SIZES = (64, 1024, 16384, 262144)
-# bytes the split search looks at a time (:meth:`DeviceEngine._safe_split`)
-_SPLIT_WINDOW = 1 << 16
+
+
+def flat_sizes(chunk_bytes: int) -> tuple:
+    """The sizes a chunk of an engine with ``chunk_bytes`` is padded to."""
+    return tuple(s for s in (8192, 131072, 1 << 21) if s < chunk_bytes) + (chunk_bytes,)
 
 # the named spans of the host path (``utils/spans.py``); the engine keeps
 # the host time of each in ``<name>_ns``. Per batch call: ``encode`` or
@@ -169,14 +178,6 @@ def resolve_device(device=None) -> torch.device:
 def _next_pow2(n: int, floor: int = 1) -> int:
     n = max(n, floor)
     return 1 << (n - 1).bit_length()
-
-
-def _quantize(n: int, sizes) -> int:
-    for s in sizes:
-        if n <= s:
-            return s
-    # beyond the largest quantized size (one giant unsplittable doc)
-    return _next_pow2(n)
 
 
 class CorpusPlan(list):
@@ -307,9 +308,7 @@ class DeviceEngine:
             _build.build_all([scan.LIBRARY, merge.LIBRARY])
         self.tables = DeviceTables.from_packed(packed, self.device)
         self.chunk_bytes = max(2, int(chunk_bytes) & ~1)
-        self._flat_sizes = tuple(
-            s for s in (8192, 131072, 1 << 21) if s < self.chunk_bytes
-        ) + (self.chunk_bytes,)
+        self._flat_sizes = flat_sizes(self.chunk_bytes)
         # chunks that took the long-piece fallback, pieces it merged on the
         # host, and Stage A runs (retries too)
         self.fallback_chunks = 0
@@ -329,8 +328,11 @@ class DeviceEngine:
         # and a graph's recorded launches at each replay
         self.merge_kernel_runs = 0
         # chunks of un-planned calls whose Stage A was issued before the
-        # call's last chunk was planned (n - 1 for a call of n chunks)
+        # call's last chunk was packed (n - 1 for a call of n chunks)
         self.streamed_chunks = 0
+        # documents the chunk packer read from non-ASCII str storage
+        # (transcoded to UTF-8 rather than copied)
+        self.wide_docs = 0
         # fetches of device data by the host: every .cpu() / .item() of the
         # engine's paths (the cold merge loops' exit tests included) and the
         # one wait on a pass's token copies
@@ -419,99 +421,35 @@ class DeviceEngine:
         pending.clear()
 
     # ------------------------------------------------------------------
-    # chunk planning (host, numpy)
+    # chunk planning (host: the native chunk packer)
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _safe_split(data: bytes, limit: int) -> int:
-        """Largest split point <= limit that is provably a piece boundary
-        for both patterns: the previous byte is an ASCII letter/digit and
-        the byte at the split is CR/LF. Returns 0 if there is none. The
-        search runs back from the limit a window at a time: the point
-        wanted is the last, and text with lines has one near the end."""
-        w = np.frombuffer(data, dtype=np.uint8, count=min(limit, len(data)))
-        hi = len(w)
-        while hi > 1:
-            lo = max(1, hi - _SPLIT_WINDOW)
-            prev, cur = w[lo - 1 : hi - 1], w[lo:hi]
-            is_crlf = (cur == 0x0A) | (cur == 0x0D)
-            is_alnum = (
-                ((prev >= 0x30) & (prev <= 0x39))
-                | ((prev >= 0x41) & (prev <= 0x5A))
-                | ((prev >= 0x61) & (prev <= 0x7A))
-            )
-            cand = np.flatnonzero(is_crlf & is_alnum)
-            if len(cand):
-                return lo + int(cand[-1])
-            hi = lo
-        return 0
-
-    def _doc_pieces(self, texts: Sequence[Optional[str]]):
-        """(doc index, UTF-8 bytes) of every document in order, made only
-        when asked for; a document over a chunk is cut at its safe split
-        points (:meth:`_safe_split`)."""
-        limit = self.chunk_bytes - 1
-        for i, t in enumerate(texts):
-            data = t.encode("utf-8") if t else b""
-            while len(data) > limit:
-                p = self._safe_split(data, limit)
-                if p == 0:
-                    break  # no safe point: single giant piece-dense doc
-                yield i, data[:p]
-                data = data[p:]
-            yield i, data
-
-    def _packed(self, texts: Sequence[Optional[str]]):
-        """The batch packed into chunks, lazily: (items, last) per chunk,
-        ``items`` its (doc index, bytes) and ``last`` whether it ends the
-        batch. A document is encoded and cut only when the packing reaches
-        it, and a chunk comes out as soon as the next piece does not fit, so
-        the caller can start on a chunk while the rest of the batch is
-        unplanned. Greedy packing looks only back, so the chunks are those
-        of planning the whole batch first."""
-        limit = self.chunk_bytes
-        chunk: List = []
-        size = 0
-        for item in self._doc_pieces(texts):
-            extra = len(item[1]) + (1 if chunk else 0)
-            if chunk and size + extra > limit:
-                yield chunk, False
-                chunk, size = [], 0
-            chunk.append(item)
-            size += len(item[1]) + 1
-        if chunk:
-            yield chunk, True
+    def _chunks(self, texts: Sequence[Optional[str]], pin: bool = False):
+        """The batch packed into chunks by the native packer, one chunk a
+        step (:class:`pack.ChunkPacker`): (buf, doc_ends, parts, ascii_only,
+        last) with ``buf`` and ``doc_ends`` CPU tensors, pinned where
+        ``pin``. A document is read only when the packing reaches it, and a
+        chunk comes out as soon as the next document does not fit, so the
+        caller can start on a chunk while the rest of the batch is
+        unpacked. Adds the documents read from non-ASCII storage to
+        ``wide_docs``."""
+        packer = pack.ChunkPacker(texts, self.chunk_bytes, self._flat_sizes,
+                                  _DOC_SIZES, pin=pin)
+        counted = 0
+        for chunk in packer:
+            self.wide_docs += packer.wide_docs - counted
+            counted = packer.wide_docs
+            yield chunk
 
     def _plan_chunks(self, texts: Sequence[Optional[str]]):
-        """Split the batch into chunks, lazily (:meth:`_packed`).
+        """Split the batch into chunks, lazily (:meth:`_chunks`).
 
-        Yields (buf, doc_ends, parts, ascii_only) where parts[i] = original
-        doc index of chunk-document i (one doc may span several
-        chunk-documents across chunks, in order).
+        Yields (buf, doc_ends, parts, ascii_only) with numpy arrays, where
+        parts[i] = original doc index of chunk-document i (one doc may span
+        several chunk-documents across chunks, in order).
         """
-        for items, _last in self._packed(texts):
-            yield self._build_chunk(items)
-
-    def _build_chunk(self, items):
-        total = sum(len(d) for (_i, d) in items) + len(items) - 1
-        size = _quantize(total, self._flat_sizes)
-        buf = np.zeros(size, dtype=np.uint8)
-        ends = np.zeros(len(items), dtype=np.int32)
-        parts = []
-        pos = 0
-        for k, (i, data) in enumerate(items):
-            if k > 0:
-                pos += 1  # separator (invalid byte; derived on the device)
-            if data:
-                buf[pos : pos + len(data)] = np.frombuffer(data, np.uint8)
-                pos += len(data)
-            ends[k] = pos
-            parts.append(i)
-        d_size = _quantize(len(items), _DOC_SIZES)
-        doc_ends = np.full(d_size, pos, dtype=np.int32)
-        doc_ends[: len(items)] = ends
-        ascii_only = bool(buf.max(initial=0) < 0x80)
-        return buf, doc_ends, parts, ascii_only
+        for buf, doc_ends, parts, ascii_only, _last in self._chunks(texts):
+            yield buf.numpy(), doc_ends.numpy(), parts, ascii_only
 
     # ------------------------------------------------------------------
     # staged pipeline
@@ -694,7 +632,7 @@ class DeviceEngine:
         read for the Stage A metadata (plus one on a capacity retry). With a
         warmed plan (``plan.chunk_cache`` set by an earlier pass) nothing is
         read: see :meth:`_process_chunks_cached`. Without a plan each
-        chunk's Stage A is issued as soon as the chunk is planned
+        chunk's Stage A is issued as soon as the chunk is packed
         (:meth:`_stream_stage_a`).
 
         With ``cold_cache`` (the default on CUDA) each chunk's Stage A, and
@@ -726,28 +664,31 @@ class DeviceEngine:
         return results
 
     def _stream_stage_a(self, texts):
-        """The un-planned call's chunks planned, uploaded and their Stage A
+        """The un-planned call's chunks packed, uploaded and their Stage A
         issued one by one, so the card runs a chunk's Stage A while the host
-        plans the next (``streamed_chunks`` counts the chunks issued before
-        the last was planned); then the metas read (:meth:`_read_metas`),
-        in the last chunk's ``stage_a`` span. The uploads copy from pinned
-        memory without a wait (:meth:`_upload`): an upload that
+        packs the next (``streamed_chunks`` counts the chunks issued before
+        the last was packed); then the metas read (:meth:`_read_metas`),
+        in the last chunk's ``stage_a`` span. On CUDA the packer writes each
+        chunk into pinned blocks of PyTorch's caching host allocator (which
+        does not hand a block out again before the copy that reads it has
+        run), and the uploads copy from them without a wait: an upload that
         synchronised would wait for the Stage A issued before it. Returns
         (the staged chunks, their metas; None for an empty batch)."""
-        packed = self._packed(texts)
+        chunks = self._chunks(texts, pin=self.device.type == "cuda")
         staged = []
         while True:
             with span(self, "plan"):
-                step = next(packed, None)
+                step = next(chunks, None)
                 if step is None:
                     return staged, None
-                items, last = step
-                buf, doc_ends, parts, ascii_only = self._build_chunk(items)
+                buf, doc_ends, parts, ascii_only, last = step
             with span(self, "upload"):
-                buf_dev, de_dev = self._upload(buf), self._upload(doc_ends)
+                buf_dev = buf.to(self.device, non_blocking=True)
+                de_dev = doc_ends.to(self.device, non_blocking=True)
             with span(self, "stage_a"):
                 staged.append(self._stage_chunk(
-                    buf, doc_ends, parts, ascii_only, buf_dev, de_dev))
+                    buf.numpy(), doc_ends.numpy(), parts, ascii_only, buf_dev,
+                    de_dev))
                 if last:
                     return staged, self._read_metas(staged)
             self.streamed_chunks += 1

@@ -67,11 +67,36 @@ def _native_arch(cxx: str) -> str:
     )
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        key = f.read() + " ".join((*CXX_FLAGS, _native_arch(CXX))).encode()
+def library_for(source: str, stem: str, flags, key: bytes = b"") -> str:
+    """Where the build of ``source`` with ``flags`` lives: ``lib<stem>_``
+    and the hash of the source, the flags, the CPU that ``-march=native``
+    resolves to and ``key``."""
+    with open(source, "rb") as f:
+        key = f.read() + " ".join((*flags, _native_arch(CXX))).encode() + key
     digest = hashlib.sha256(key).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libjtokkit_native_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+
+
+def compile_library(path: str, source: str, flags, what: str) -> str:
+    """Compile ``source`` into ``path`` (a temporary file, then renamed);
+    returns the compiler's command and output. Raises with them on
+    failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    cmd = [CXX, *flags, "-o", tmp, source]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"{CXX} failed to build {what}: {e}") from e
+    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{CXX} failed to build {what}:\n{log}")
+    os.replace(tmp, path)
+    return log
+
+
+def library_path() -> str:
+    return library_for(SOURCE, "jtokkit_native", CXX_FLAGS)
 
 
 def build(force: bool = False) -> str:
@@ -81,17 +106,7 @@ def build(force: bool = False) -> str:
     path = library_path()
     if os.path.exists(path) and not force:
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
-    cmd = [CXX, *CXX_FLAGS, "-o", tmp, SOURCE]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except OSError as e:
-        raise RuntimeError(f"{CXX} failed to build the native engine: {e}") from e
-    BUILD_LOG = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"{CXX} failed to build the native engine:\n{BUILD_LOG}")
-    os.replace(tmp, path)
+    BUILD_LOG = compile_library(path, SOURCE, CXX_FLAGS, "the native engine")
     return path
 
 

@@ -1,22 +1,26 @@
 """The un-planned batch call streamed chunk by chunk
-(``DeviceEngine._stream_stage_a``): the lazy chunk plan against the eager
-one it replaced, the answers of streamed calls against the host oracle and a
-warmed plan's passes, the order in which chunks are planned and their Stage
-A issued, the ``streamed_chunks`` counter, and the split search against
-its full scan.
+(``DeviceEngine._stream_stage_a``): the lazy chunk plan (the native chunk
+packer) against the eager one it replaced, the answers of streamed calls
+against the host oracle and a warmed plan's passes, the order in which
+chunks are packed and their Stage A issued, the ``streamed_chunks``
+counter, and the packer's split point against a full scan.
 
 Engines run on the CPU (``device="cpu"``; the device calls with
-``chunk_bytes=1<<17``); nothing here needs a card or JAX. Every comparison is
-exact (bytes and integer ids: tolerance 0).
+``chunk_bytes=1<<17``); nothing here needs a card. The eager plan is the JAX
+package's. Every comparison is exact (bytes and integer ids: tolerance 0).
 """
+
+from collections.abc import Sequence
 
 import numpy as np
 import pytest
 import torch
 
-from jtokkit_tpu_torch import Encodings, EncodingType
-from jtokkit_tpu_torch.engine.device import _SPLIT_WINDOW, CHUNK_BYTES, DeviceEngine
+from jtokkit_tpu_torch import Encodings, EncodingType, pack
+from jtokkit_tpu_torch.engine.device import _DOC_SIZES, CHUNK_BYTES, DeviceEngine, flat_sizes
 from jtokkit_tpu_torch.utils import corpus
+
+from . import pack_reference as ref
 
 # The suite runs in several worker processes at once; torch's own thread
 # pool in each of them would oversubscribe the cores.
@@ -43,8 +47,8 @@ def engine(chunk_bytes=SMALL, **kw):
 
 
 def full_scan_split(data: bytes, limit: int) -> int:
-    """The split point by one scan of the whole window: the windowed
-    search's reference (``DeviceEngine._safe_split``)."""
+    """The split point by one scan of the whole window: the reference of
+    the packer's search."""
     w = np.frombuffer(data[:limit], dtype=np.uint8)
     if len(w) < 2:
         return 0
@@ -58,34 +62,15 @@ def full_scan_split(data: bytes, limit: int) -> int:
 
 def eager_plan_chunks(eng, texts):
     """The chunk plan as it was before it streamed: every document of the
-    batch encoded and cut (by the full scan) first, then packed. The lazy
-    plan's reference."""
-    limit = eng.chunk_bytes
-    pending = []
-    for i, t in enumerate(texts):
-        data = t.encode("utf-8") if t else b""
-        while len(data) > limit - 1:
-            p = full_scan_split(data, limit - 1)
-            if p == 0:
-                break
-            pending.append((i, data[:p]))
-            data = data[p:]
-        pending.append((i, data))
-    chunk, size = [], 0
-    for item in pending:
-        extra = len(item[1]) + (1 if chunk else 0)
-        if chunk and size + extra > limit:
-            yield eng._build_chunk(chunk)
-            chunk, size = [], 0
-        chunk.append(item)
-        size += len(item[1]) + 1
-    if chunk:
-        yield eng._build_chunk(chunk)
+    batch encoded and cut (by the full scan) first, then packed; the JAX
+    package's plan (``pack_reference.plan_chunks``). The lazy plan's
+    reference."""
+    return [c[:4] for c in ref.plan_chunks(texts, eng.chunk_bytes)]
 
 
 def _wrapped(nbytes: int, seed: int) -> str:
     """About ``nbytes`` of English hard-wrapped at 12 words a line: a letter
-    or digit before most line feeds, where ``_safe_split`` may cut."""
+    or digit before most line feeds, where the packer may cut."""
     words = " ".join(corpus.generate(nbytes / 1e6, seed=seed)).split(" ")
     lines = [" ".join(words[k : k + 12]) for k in range(0, len(words), 12)]
     return "\n".join(lines)[:nbytes]
@@ -184,51 +169,55 @@ def test_streamed_calls_equal_the_oracle_and_a_warmed_plan(batch):
     assert eng.count_tokens_corpus(None, plan=plan) == sum(counts)
 
 
-class _Drawn(list):
-    """A batch that logs each document as the plan draws it."""
+class _Drawn(Sequence):
+    """A batch that logs each document as the packer reads it."""
 
     def __init__(self, docs, events):
-        super().__init__(docs)
-        self.events = events
+        self.docs, self.events = docs, events
 
-    def __iter__(self):
-        for k, d in enumerate(list.__iter__(self)):
-            self.events.append(("doc", k))
-            yield d
+    def __len__(self):
+        return len(self.docs)
+
+    def __getitem__(self, k):
+        self.events.append(("doc", k))
+        return self.docs[k]
 
 
 @pytest.mark.parametrize("cold_cache", [False, True])
 def test_each_chunk_is_issued_before_the_next_is_planned(cold_cache, monkeypatch):
-    """Stage A of chunk k runs before the plan builds chunk k + 1 or draws
+    """Stage A of chunk k runs before the packer packs chunk k + 1 or reads
     any document past the one that did not fit in chunk k, on the eager
     path and from the graph cache."""
     eng = DeviceEngine.from_oracle(_oracle(), device="cpu", chunk_bytes=SMALL,
                                    cold_cache=cold_cache)
     events = []
-    real_a, real_build = eng._stage_a, eng._build_chunk
+    real_a, real_chunks = eng._stage_a, eng._chunks
 
     def stage_a(*args):
         events.append(("stage_a",))
         return real_a(*args)
 
-    def build(items):
-        events.append(("build", items[-1][0]))
-        return real_build(items)
+    def chunks(texts, pin=False):
+        for chunk in real_chunks(texts, pin):
+            events.append(("build", chunk[2][-1]))
+            yield chunk
 
     monkeypatch.setattr(eng, "_stage_a", stage_a)
-    monkeypatch.setattr(eng, "_build_chunk", build)
+    monkeypatch.setattr(eng, "_chunks", chunks)
     texts = short_docs(SMALL)
     n = len(list(eager_plan_chunks(eng, texts)))
     events.clear()
     eng.count_tokens_batch(_Drawn(texts, events))
     kinds = [e[0] for e in events if e[0] != "doc"]
     assert kinds == ["build", "stage_a"] * n
-    # before a chunk's Stage A, the plan drew no document past the one
+    # before a chunk's Stage A, the packer read no document past the one
     # after its last
     for k, e in enumerate(events):
         if e[0] == "stage_a":
             last = [x for x in events[:k] if x[0] == "build"][-1][1]
             assert max(x[1] for x in events[:k] if x[0] == "doc") <= last + 1
+    # and it read them all, each chunk's from the cursor on
+    assert {e[1] for e in events if e[0] == "doc"} == set(range(len(texts)))
 
 
 def test_streamed_chunks_counts_all_but_the_last_of_an_unplanned_call():
@@ -252,6 +241,10 @@ def test_streamed_chunks_counts_all_but_the_last_of_an_unplanned_call():
     assert eng.streamed_chunks == before
 
 
+# 64 KiB: the edges of windows of this size are among the split cases
+WINDOW = 1 << 16
+
+
 def _one_point(size: int, at: int, first: int = ord("a")) -> bytes:
     """``size`` bytes with one safe split point, at ``at``."""
     data = bytearray(b"." * size)
@@ -259,30 +252,54 @@ def _one_point(size: int, at: int, first: int = ord("a")) -> bytes:
     return bytes(data)
 
 
+def first_piece(data: bytes, limit: int) -> int:
+    """Bytes of the first chunk-document that the packer makes of one
+    document (``data`` as UTF-8) in chunks of ``limit + 1`` bytes."""
+    packer = pack.ChunkPacker([data.decode("utf-8")], limit + 1,
+                              flat_sizes(limit + 1), _DOC_SIZES)
+    _buf, doc_ends, _parts, _ascii, _last = next(packer)
+    return int(doc_ends[0])
+
+
+def packer_split(data: bytes, limit: int) -> int:
+    """The packer's cut of ``data`` at ``limit``: the first piece's bytes
+    for a document over the limit, 0 where it is not cut."""
+    if len(data) <= limit:
+        assert first_piece(data, limit) == len(data)
+        return 0
+    got = first_piece(data, limit)
+    return 0 if got == len(data) else got
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_windowed_split_finds_the_full_scans_point(seed):
-    """The split search runs back from the limit a window at a time
-    (``_SPLIT_WINDOW``); it returns the point the full scan returns: on
-    random bytes of every density of split points, and with the only
-    point at each edge of a window, at the first and last place it may
-    be, and at a CR or after a digit or a capital."""
+    """A document over ``chunk_bytes - 1`` bytes is cut where the full scan
+    of its first ``limit`` bytes puts the last safe point: on random text of
+    every density of split points (1- and 2-byte storage), and with the only
+    point at each edge of a 16-byte block and of a 64 KiB window, at the
+    first and last place it may be, and at a CR or after a digit or a
+    capital; a document with no point is not cut, and one within the limit
+    is not searched."""
     rng = np.random.default_rng(seed)
-    alphabet = np.frombuffer(b"ab9Z \n\r.\xe4", np.uint8)
+    alphabet = ["a", "b", "9", "Z", " ", "\n", "\r", ".", "\xe4", "\u0436"][: 9 + seed % 2]
     for _ in range(150):
-        size, limit = (int(x) for x in rng.integers(0, 300_000, 2))
+        size, limit = (int(x) for x in rng.integers(1, 300_000, 2))
         density = rng.random() ** 6
-        data = np.where(rng.random(size) < density, rng.choice(alphabet, size),
-                        ord("x")).astype(np.uint8).tobytes()
-        assert DeviceEngine._safe_split(data, limit) == full_scan_split(data, limit)
-    win, limit = _SPLIT_WINDOW, 3 * _SPLIT_WINDOW + 77
-    for at in (1, 2, limit - 1, limit - 1 - win, limit - win, limit - win + 1,
-               limit - 2 * win, 7):
-        for first in (ord("a"), ord("7"), ord("Q")):
-            data = _one_point(limit + 500, at, first)
-            assert DeviceEngine._safe_split(data, limit) == full_scan_split(data, limit) == at
-    cr = bytearray(_one_point(limit, 5000))
+        text = "".join(np.where(rng.random(size) < density,
+                                rng.choice(alphabet, size), "x"))
+        data = text.encode("utf-8")
+        want = full_scan_split(data, limit) if len(data) > limit else 0
+        assert packer_split(data, limit) == want
+    limit = 3 * WINDOW + 77
+    for win in (16, WINDOW):
+        for at in (1, 2, limit - 1, limit - 1 - win, limit - win, limit - win + 1,
+                   limit - 2 * win, 7):
+            for first in (ord("a"), ord("7"), ord("Q")):
+                data = _one_point(limit + 500, at, first)
+                assert packer_split(data, limit) == full_scan_split(data, limit) == at
+    cr = bytearray(_one_point(limit + 1, 5000))
     cr[5000] = 0x0D
-    assert DeviceEngine._safe_split(bytes(cr), limit) == 5000
+    assert packer_split(bytes(cr), limit) == 5000
     # past the limit, or with nothing before it, there is no point
-    assert DeviceEngine._safe_split(_one_point(limit + 10, limit), limit) == 0
-    assert DeviceEngine._safe_split(b"\n" * 10, 10) == 0
+    assert packer_split(_one_point(limit + 10, limit), limit) == 0
+    assert packer_split(b"\n" * 11, 10) == 0
