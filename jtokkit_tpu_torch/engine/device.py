@@ -83,8 +83,13 @@ the rounds the byte-pair merge loops ran, or would have run where the merge
 kernel ran instead (the device counters come back with the call's last
 read), ``miss_pieces`` the pieces sent to them: the bucket counts, from
 the metas, of every chunk routed to Stages B-C of an un-planned or first
-pass, and ``merge_kernel_runs`` the bucket merges run by the merge kernel
-(a launch adds one; a graph replay adds the launches its capture holds).
+pass, ``pieces`` the pieces of those chunks (the metas' ``n_pieces``), and
+``merge_kernel_runs`` the bucket merges run by the merge kernel (a launch
+adds one; a graph replay adds the launches its capture holds).
+``unicode_chunks`` counts the chunks staged at the ``"unicode"`` Stage A,
+``capacity_retries`` the passes that ran Stage A again at the roomy
+capacities and ``retried_chunks`` the chunks each such pass ran again; the
+span ``capacity_retry`` holds that second Stage A with its metas read.
 None of them adds a read.
 
 Batch decode (token ids -> bytes) concatenates the lists, runs
@@ -136,7 +141,9 @@ def flat_sizes(chunk_bytes: int) -> tuple:
 # the host time of each in ``<name>_ns``. Per batch call: ``encode`` or
 # ``count`` (the whole call); inside it ``plan`` and ``upload`` (the chunk
 # plan and its copy to the device), ``stage_a`` (every chunk's Stage A
-# issue and the capacity retry) with ``metas_read`` inside; an un-planned
+# issue and the capacity retry) with ``metas_read`` and ``capacity_retry``
+# (the roomy re-issue of the chunks that overflowed, with its own
+# ``metas_read``) inside; an un-planned
 # call enters ``plan``, ``upload`` and ``stage_a`` once a chunk, in turns,
 # and its last ``stage_a`` holds the metas read too; ``stages_b_c``
 # (routing and every chunk's Stages B-C issue), ``counts_read``, the
@@ -145,11 +152,13 @@ def flat_sizes(chunk_bytes: int) -> tuple:
 # ``native_wait`` inside. ``capture`` is a cached unit's first capture,
 # inside the stage that met it; ``cached_dispatch`` the warmed plan's
 # dispatch. ``special_check`` is the facade's special-token check of a
-# batch count (``encoding_impl.py``).
+# batch count (``encoding_impl.py``). Beside the spans the engine counts
+# ``unicode_chunks``, ``retried_chunks`` and ``pieces`` (see the module's
+# docstring).
 SPANS = (
     "encode", "count", "special_check", "plan", "upload", "stage_a",
-    "metas_read", "stages_b_c", "counts_read", "fetch", "fetch_wait",
-    "unpack_split", "host_chunks", "native_wait", "capture",
+    "metas_read", "capacity_retry", "stages_b_c", "counts_read", "fetch",
+    "fetch_wait", "unpack_split", "host_chunks", "native_wait", "capture",
     "cached_dispatch",
 )
 
@@ -289,8 +298,12 @@ class DeviceEngine:
         512: 385, 4096: 513,
     }
     # units each cache of the un-planned path keeps (least recently used
-    # first out)
-    COLD_CACHE_MAX = 32
+    # first out). Python source (variant, divisors, flat size, document
+    # slots and bucket capacities varying by chunk) meets 29-35 shapes of
+    # Stages B-C over a 256 MiB ring (H100 runs of the codex-p50k-encode
+    # cell); at 32 units a cycle of the ring pushed some out, and they were
+    # captured again inside the timed calls
+    COLD_CACHE_MAX = 64
 
     def __init__(self, name: str, pattern: str, packed: vtables.PackedVocabulary,
                  oracle: OracleEngine, *, device=None,
@@ -315,15 +328,20 @@ class DeviceEngine:
         self.host_pieces = 0
         self.stage_a_runs = 0
         # cold passes that ran Stage A again for a capacity overflow (each
-        # one more read of metas)
+        # one more read of metas), and the chunks they ran again
         self.capacity_retries = 0
+        self.retried_chunks = 0
+        # chunks staged at the "unicode" Stage A (a non-ASCII byte in them)
+        self.unicode_chunks = 0
         # rounds the byte-pair merge loops ran, or would have run where the
         # merge kernel ran (:data:`merge.MERGE_ROUNDS`, per engine: the eager
         # merges as they run, the device forms when their counters are read
         # back), and the pieces sent to them (the
-        # bucket counts of every chunk routed to Stages B-C, from the metas)
+        # bucket counts of every chunk routed to Stages B-C, from the metas);
+        # ``pieces`` the pieces of those chunks (the metas' n_pieces)
         self.merge_rounds = 0
         self.miss_pieces = 0
+        self.pieces = 0
         # bucket merges run by the merge kernel (csrc/merge.cu): one a launch,
         # and a graph's recorded launches at each replay
         self.merge_kernel_runs = 0
@@ -699,6 +717,7 @@ class DeviceEngine:
         buf_dev, de_dev, divs]."""
         s = [buf, doc_ends, parts, "ascii" if ascii_only else "unicode", None,
              None, buf_dev, de_dev, None]
+        self.unicode_chunks += not ascii_only
         self._issue_stage_a(s, _DIVS_PRIMARY if ascii_only else _DIVS_PRIMARY_UNICODE)
         return s
 
@@ -712,8 +731,8 @@ class DeviceEngine:
 
     def _read_metas(self, staged):
         """ONE host read of every staged chunk's meta (and a second Stage A
-        and read of the chunks whose tables overflowed). Returns the
-        metas."""
+        and read of the chunks whose tables overflowed, in the
+        ``capacity_retry`` span). Returns the metas."""
         with span(self, "metas_read"):
             metas = self._read(torch.stack([s[5] for s in staged]))
 
@@ -723,14 +742,17 @@ class DeviceEngine:
         # a run without CAPACITY.
         retried = [i for i in range(len(staged))
                    if int(metas[i][0]) & stage4.OVERFLOW_CAPACITY]
-        for i in retried:
-            self._issue_stage_a(staged[i], _DIVS_ROOMY)
-        if retried:
-            self.capacity_retries += 1
+        if not retried:
+            return metas
+        self.capacity_retries += 1
+        self.retried_chunks += len(retried)
+        with span(self, "capacity_retry"):
+            for i in retried:
+                self._issue_stage_a(staged[i], _DIVS_ROOMY)
             with span(self, "metas_read"):
                 re_metas = self._read(torch.stack([staged[i][5] for i in retried]))
-            for k, i in enumerate(retried):
-                metas[i] = re_metas[k]
+        for k, i in enumerate(retried):
+            metas[i] = re_metas[k]
         return metas
 
     def _run_stages_b_c(self, staged, metas, want_tokens: bool):
@@ -767,6 +789,7 @@ class DeviceEngine:
                 if bucket_counts[b]
             ]
             self.miss_pieces += sum(n for _b, _l, _c, n in caps)
+            self.pieces += int(metas[i][1])
             entry = {"kind": "ok", "variant": variant, "divs": divs,
                      "caps": caps, "rounds": None}
             if self.cold_cache:
